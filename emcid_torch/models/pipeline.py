@@ -1,0 +1,145 @@
+"""Stable-Diffusion text-to-latents sampling: seeded, batched, with CFG.
+
+Counterpart of ``emcid_tpu/models/pipeline.py``.  Latents at this module's
+public functions are channel-last (B, h, w, c), as in the JAX package; the
+UNet runs NCHW inside.  Each image's initial latents come from its own
+``torch.Generator`` seeded with the image's seed, so an image does not
+depend on its batch (the streams differ from JAX's by construction: tests
+hand both packages the same latents through ``sample_latents(latents=)``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Optional, Sequence
+
+import numpy as np
+import torch
+
+from emcid_torch.models.scheduler import (
+    Schedule,
+    ddim_timesteps,
+    run_sampler,
+    sd_schedule,
+)
+
+
+@dataclass
+class SDComponents:
+    """The models of one Stable Diffusion pipeline (weights live in the
+    modules; an edit returns new components with a new text encoder)."""
+
+    tokenizer: Any
+    text_encoder: torch.nn.Module  # CLIPTextEncoder
+    unet: torch.nn.Module  # UNet2DCondition
+    vae: torch.nn.Module  # AutoencoderKL
+    schedule: Schedule = field(default_factory=sd_schedule)
+    scaling_factor: float = 0.18215
+    latent_channels: int = 4
+    vae_scale: int = 8
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.unet.parameters()).device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return next(self.unet.parameters()).dtype
+
+    def replace_text_encoder(self, text_encoder) -> "SDComponents":
+        return dataclasses.replace(self, text_encoder=text_encoder)
+
+
+def tokenize(components: SDComponents, prompts: Sequence[str],
+             max_length: Optional[int] = None) -> torch.Tensor:
+    tok = components.tokenizer
+    enc = tok(list(prompts), padding="max_length", truncation=True,
+              max_length=max_length or tok.model_max_length)
+    return torch.as_tensor(enc["input_ids"], dtype=torch.long,
+                           device=components.device)
+
+
+@torch.no_grad()
+def encode_prompts(components: SDComponents, prompts: Sequence[str],
+                   max_length: Optional[int] = None) -> torch.Tensor:
+    """Prompts -> (B, S, H) text-encoder hidden states."""
+    ids = tokenize(components, prompts, max_length)
+    return components.text_encoder(ids).last_hidden_state
+
+
+def initial_latents(seeds: Sequence[int], height: int, width: int,
+                    channels: int = 4, vae_scale: int = 8, device=None,
+                    dtype=torch.float32) -> torch.Tensor:
+    """(B, h, w, c) standard-normal latents, one generator per seed."""
+    out = []
+    for s in seeds:
+        g = torch.Generator(device=device).manual_seed(int(s))
+        out.append(torch.randn((height // vae_scale, width // vae_scale,
+                                channels), generator=g, device=device,
+                               dtype=dtype))
+    return torch.stack(out)
+
+
+@torch.no_grad()
+def sample_latents(
+    components: SDComponents,
+    prompts: Sequence[str],
+    seeds: Sequence[int],
+    *,
+    negative_prompts: Optional[Sequence[str]] = None,
+    num_inference_steps: int = 50,
+    guidance_scale: float = 7.5,
+    height: int = 512,
+    width: int = 512,
+    sampler: str = "pndm",
+    cfg_interval: float = 1.0,
+    latents: Optional[torch.Tensor] = None,
+    mesh=None,
+) -> torch.Tensor:
+    """Denoise to final latents (B, h, w, c), f32.
+
+    ``cfg_interval < 1`` applies classifier-free guidance only for the
+    first ``cfg_interval`` fraction of steps; the tail runs the
+    conditional half-batch only.  ``latents`` (channel-last) replaces the
+    seeded initial latents."""
+    if mesh is not None:
+        raise NotImplementedError("mesh= sharding (ROADMAP M14)")
+    if len(prompts) != len(seeds):
+        raise ValueError("one seed per prompt")
+    if not 0.0 < cfg_interval <= 1.0:
+        raise ValueError(f"cfg_interval={cfg_interval} must be in (0, 1]")
+    dev, dtype = components.device, components.dtype
+    unet = components.unet
+    ctx_cond = encode_prompts(components, prompts)
+    do_cfg = guidance_scale > 1.0
+    if do_cfg:
+        neg = (negative_prompts if negative_prompts is not None
+               else [""] * len(prompts))
+        ctx_uncond = encode_prompts(components, neg)
+        ctx2 = torch.cat([ctx_uncond, ctx_cond])
+    if latents is None:
+        latents = initial_latents(seeds, height, width,
+                                  components.latent_channels,
+                                  components.vae_scale, device=dev)
+    lat = torch.as_tensor(latents, device=dev).float().permute(0, 3, 1, 2)
+
+    def t_of(t):
+        return torch.tensor([t], device=dev)
+
+    def eps_plain(x, t):
+        return unet(x.to(dtype), t_of(t), ctx_cond).sample.float()
+
+    def eps_cfg(x, t):
+        x2 = torch.cat([x, x]).to(dtype)
+        eps_u, eps_c = unet(x2, t_of(t), ctx2).sample.float().chunk(2)
+        return eps_u + guidance_scale * (eps_c - eps_u)
+
+    ts = ddim_timesteps(components.schedule, num_inference_steps)
+    ts_prev = np.concatenate([ts[1:], [-1]]).astype(np.int32)
+    n_head = (max(1, int(round(cfg_interval * num_inference_steps)))
+              if do_cfg and cfg_interval < 1.0 else None)
+    out = run_sampler(sampler, components.schedule,
+                      eps_cfg if do_cfg else eps_plain, lat, ts, ts_prev,
+                      unet_eps_tail=eps_plain, n_head=n_head)
+    return out.permute(0, 2, 3, 1).contiguous()

@@ -1,0 +1,11 @@
+from emcid_torch.stats.running import (
+    CombinedStat,
+    SecondMoment,
+    Stat,
+    box_numpy_null,
+    load_cached_state,
+    null_numpy_value,
+    save_cached_state,
+    tally,
+    unbox_numpy_null,
+)

@@ -1,0 +1,162 @@
+"""PyTorch port, ops: attention dispatch (CPU path), the plain versions of
+the four CUDA kernels, and the closed-form solve, each against the JAX
+package on the same numpy inputs.
+
+The CUDA kernels themselves run only on the card (``chip_smoke.py`` holds
+each against these plain versions there); on CPU tensors each wrapper
+computes its plain version and launches nothing.
+"""
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from emcid_tpu.ops.attention import _flash_forward
+from emcid_tpu.ops.attention import attention as jax_attention
+from emcid_tpu.ops.flash_v2 import flash_attention_v2 as jax_flash_v2
+from emcid_tpu.ops.solve import solve_adj_k as jax_solve
+
+from emcid_torch.ops import _build
+from emcid_torch.ops.attention import (
+    attention,
+    flash_attention,
+    mha_chunked,
+    short_kv_fwd,
+)
+from emcid_torch.ops.flash_v2 import flash_attention_v2
+from emcid_torch.ops.solve import solve_adj_k, upd_matrix_match_shape
+
+
+def _qkv(seed, B, N, M, H, D):
+    r = np.random.RandomState(seed)
+    return (r.randn(B, N, H, D).astype(np.float32),
+            r.randn(B, M, H, D).astype(np.float32),
+            r.randn(B, M, H, D).astype(np.float32))
+
+
+def _t(*xs, grad=False):
+    return [torch.from_numpy(x.copy()).requires_grad_(grad) for x in xs]
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 64, 64, 2, 40),      # short path (einsum softmax)
+    (1, 2048, 2048, 1, 16),  # long: chunked scan on the CPU
+    (1, 1024, 77, 2, 40),    # long queries, 77-token context
+])
+def test_attention_cpu_matches_jax(shape):
+    B, N, M, H, D = shape
+    q, k, v = _qkv(0, B, N, M, H, D)
+    ref = np.asarray(jax_attention(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), D ** -0.5))
+    got = attention(*_t(q, k, v), scale=D ** -0.5).numpy()
+    np.testing.assert_allclose(got, ref, atol=2e-5)
+
+
+def test_mha_chunked_unaligned_matches_jax():
+    q, k, v = _qkv(1, 2, 200, 200, 2, 40)
+    from emcid_tpu.ops.attention import mha_chunked as jax_chunked
+
+    ref = np.asarray(jax_chunked(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), 40 ** -0.5, block_q=64))
+    got = mha_chunked(*_t(q, k, v), 40 ** -0.5, block_q=64).numpy()
+    np.testing.assert_allclose(got, ref, atol=2e-5)
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 512, 512, 2, 40),   # SD level-0 head dim
+    (1, 256, 256, 2, 80),
+    (2, 300, 300, 1, 40),   # N not a block multiple
+    (1, 512, 77, 2, 40),    # padded + masked key block
+])
+def test_flash_v2_plain_forward_matches_jax(shape):
+    """K1's plain version against the Pallas kernel in interpret mode."""
+    B, N, M, H, D = shape
+    q, k, v = _qkv(2, B, N, M, H, D)
+    ref = np.asarray(jax_flash_v2(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), D ** -0.5, True))
+    got = flash_attention_v2(*_t(q, k, v), D ** -0.5).numpy()
+    np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 384, 384, 2, 40),
+    (1, 256, 77, 2, 40),
+])
+def test_flash_v2_plain_grads_match_jax(shape):
+    """K2/K3's plain versions (through the autograd.Function) against the
+    Pallas backward kernels in interpret mode."""
+    B, N, M, H, D = shape
+    q, k, v = _qkv(3, B, N, M, H, D)
+    w = np.random.RandomState(4).randn(B, N, H, D).astype(np.float32)
+    f = lambda q, k, v: jnp.sum(
+        jax_flash_v2(q, k, v, D ** -0.5, True) * jnp.asarray(w))
+    ref = jax.grad(f, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    qt, kt, vt = _t(q, k, v, grad=True)
+    (flash_attention_v2(qt, kt, vt, D ** -0.5) * torch.from_numpy(w)).sum(
+    ).backward()
+    for a, b, name in zip(ref, (qt.grad, kt.grad, vt.grad), "qkv"):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=5e-4,
+                                   atol=5e-5, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 256, 256, 2, 40),
+    (1, 256, 77, 2, 40),   # the cross-attention shape
+])
+def test_short_kv_plain_matches_jax_kernel(shape):
+    """K4's plain version against ``_flash_forward`` in interpret mode."""
+    B, N, M, H, D = shape
+    q, k, v = _qkv(5, B, N, M, H, D)
+    ref = np.asarray(_flash_forward(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), D ** -0.5, block_q=128,
+                                    interpret=True))
+    got = short_kv_fwd(*_t(q, k, v), D ** -0.5).numpy()
+    np.testing.assert_allclose(got, ref, atol=2e-5)
+
+
+def test_short_kv_backward_is_chunked_recompute():
+    """K4's backward (the chunked recompute) against the VJP of the JAX
+    package's ``mha_chunked``, which is what its ``flash_attention``
+    backward runs."""
+    from emcid_tpu.ops.attention import mha_chunked as jax_chunked
+
+    q, k, v = _qkv(6, 1, 256, 77, 2, 40)
+    g = lambda q, k, v: jnp.sum(jax_chunked(q, k, v, 40 ** -0.5) ** 2)
+    ref = jax.grad(g, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    qt, kt, vt = _t(q, k, v, grad=True)
+    (flash_attention(qt, kt, vt, 40 ** -0.5) ** 2).sum().backward()
+    for a, b in zip(ref, (qt.grad, kt.grad, vt.grad)):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=5e-4,
+                                   atol=5e-5)
+
+
+def test_cpu_wrappers_launch_nothing():
+    _build.reset_launches()
+    q, k, v = _t(*_qkv(7, 1, 1024, 1024, 1, 16))
+    flash_attention_v2(q, k, v).sum()
+    short_kv_fwd(q[:, :, :, :], k[:, :77], v[:, :77], 0.25)
+    assert all(n == 0 for n in _build.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("method,tol", [("f32_ir", 1e-4), ("f64", 1e-10)])
+def test_solve_adj_k_matches_jax(method, tol):
+    r = np.random.RandomState(8)
+    A = r.randn(300, 64).astype(np.float32)
+    C = (A.T @ A / 300).astype(np.float32)
+    K = r.randn(64, 5).astype(np.float32)
+    ref = np.asarray(jax_solve(C, K, 40.0, method=method))
+    got = solve_adj_k(torch.from_numpy(C), torch.from_numpy(K), 40.0,
+                      method=method)
+    got = got.numpy() if torch.is_tensor(got) else got
+    assert np.abs(got - ref).max() <= tol * np.abs(ref).max()
+
+
+def test_upd_matrix_match_shape():
+    m = torch.zeros(3, 5)
+    assert tuple(upd_matrix_match_shape(m, (5, 3)).shape) == (5, 3)
+    assert tuple(upd_matrix_match_shape(m, (3, 5)).shape) == (3, 5)
+    with pytest.raises(ValueError):
+        upd_matrix_match_shape(m, (4, 4))
