@@ -10,7 +10,7 @@ randomly-initialized variants that serve as the test-suite "fake backend"
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field, replace
+from dataclasses import asdict, dataclass, field, replace
 from typing import Optional, Sequence, Tuple
 
 
@@ -178,6 +178,15 @@ def vae_config_from_diffusers(c: dict) -> VAEConfig:
         sample_size=c.get("sample_size", 512),
         scaling_factor=c.get("scaling_factor", 0.18215),
     )
+
+
+def config_dict(cfg) -> dict:
+    """A config as the ``config.json`` dict of its HF/diffusers folder
+    (tuples as lists): the keys ``unet_config_from_diffusers``,
+    ``vae_config_from_diffusers`` and ``models.loader.load_pipeline`` read
+    back."""
+    return {k: list(v) if isinstance(v, tuple) else v
+            for k, v in asdict(cfg).items()}
 
 
 def tiny_unet(cross_attention_dim: int = 32) -> UNetConfig:

@@ -1,4 +1,5 @@
-"""Stable-Diffusion text-to-latents sampling: seeded, batched, with CFG.
+"""Stable-Diffusion sampling: seeded, batched, with CFG; latents to images
+and back through the VAE.
 
 Counterpart of ``emcid_tpu/models/pipeline.py``.  Latents at this module's
 public functions are channel-last (B, h, w, c), as in the JAX package; the
@@ -11,6 +12,7 @@ hand both packages the same latents through ``sample_latents(latents=)``).
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass, field
 from typing import Any, Optional, Sequence
 
@@ -143,3 +145,54 @@ def sample_latents(
                       eps_cfg if do_cfg else eps_plain, lat, ts, ts_prev,
                       unet_eps_tail=eps_plain, n_head=n_head)
     return out.permute(0, 2, 3, 1).contiguous()
+
+
+@torch.no_grad()
+def decode_latents(components: SDComponents, latents) -> np.ndarray:
+    """Channel-last latents -> uint8 RGB images (B, H, W, 3) on the host."""
+    vae, sf = components.vae, components.scaling_factor
+    lat = torch.as_tensor(latents, device=components.device).float()
+    img = vae.decode((lat.permute(0, 3, 1, 2) / sf).to(components.dtype))
+    img = torch.clamp(img.float() / 2 + 0.5, 0.0, 1.0)
+    img = torch.round(img * 255).to(torch.uint8).permute(0, 2, 3, 1)
+    return img.cpu().numpy()
+
+
+@torch.no_grad()
+def encode_images(components: SDComponents, images,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+    """uint8 or float RGB (B, H, W, 3) -> scaled latents (B, h, w, c): the
+    posterior mode, or a draw from it with ``generator``."""
+    dev = components.device
+    x = torch.tensor(np.asarray(images), device=dev)
+    x = x.float() / 255.0 if x.dtype == torch.uint8 else x.float()
+    dist = components.vae.encode((x * 2.0 - 1.0).permute(0, 3, 1, 2)
+                                 .to(components.dtype))
+    z = dist.mean.float()
+    if generator is not None:
+        std = torch.exp(0.5 * torch.clamp(dist.logvar.float(), -30.0, 20.0))
+        z = z + std * torch.randn(z.shape, generator=generator, device=dev)
+    return (z * components.scaling_factor).permute(0, 2, 3, 1).contiguous()
+
+
+def generate(components: SDComponents, prompts: Sequence[str],
+             seeds: Sequence[int], batch_size: Optional[int] = None,
+             mesh=None, **kwargs) -> np.ndarray:
+    """Text -> uint8 images (B, H, W, 3), in chunks of ``batch_size``
+    prompts (default: all; ``EMCID_TPU_GEN_BATCH`` caps it).  Each image
+    has its own seed, so the chunking does not change the images."""
+    if mesh is not None:
+        raise NotImplementedError("mesh= sharding (ROADMAP M14)")
+    prompts, seeds = list(prompts), list(seeds)
+    n = len(prompts)
+    if batch_size is None:
+        env_bs = int(os.environ.get("EMCID_TPU_GEN_BATCH", "0") or 0)
+        batch_size = min(env_bs, n) if env_bs else None
+    bs = batch_size or n
+    images = []
+    for i in range(0, n, bs):
+        lat = sample_latents(components, prompts[i:i + bs], seeds[i:i + bs],
+                             **kwargs)
+        images.append(decode_latents(components, lat))
+    return np.concatenate(images, axis=0)

@@ -13,11 +13,22 @@ conv; ``timestep_embedding`` uses ``flip_sin_to_cos``; and
 ``attention_head_dim`` is the number of heads (the HF quirk).
 The JAX package's ``inject=`` seams and ``sow`` taps serve the UNet edit
 modes (ROADMAP M11) and are not ported yet.
+
+Two knobs, read at call time with the JAX package's names and values,
+route the norms through the fused kernels: ``EMCID_TPU_FUSED_GN`` = ``1``
+(every GroupNorm(+SiLU) site: the resnets' norm1/norm2, each
+Transformer2D's input norm, conv_norm_out) or ``geo`` (only the sites on
+``ops.groupnorm.geo_wins``); any other value means ``0``.
+``EMCID_TPU_FUSED_LN=1`` routes the transformer blocks' norm1/2/3.  The
+``nn.GroupNorm``/``nn.LayerNorm`` modules stay as the parameter holders
+either way (the JAX ``_GNParams`` twin), so the state dict is the same;
+with both knobs off the stock modules run.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple
 
 import torch
@@ -26,6 +37,8 @@ from torch import nn
 
 from emcid_torch.models.configs import UNetConfig
 from emcid_torch.ops.attention import attention
+from emcid_torch.ops.groupnorm import group_norm_act
+from emcid_torch.ops.layernorm import layer_norm_act
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -46,6 +59,39 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int,
     return emb
 
 
+def _fused_gn() -> str:
+    """``EMCID_TPU_FUSED_GN``: "0" (stock, the default), "1" (every site)
+    or "geo" (the ``geo_wins`` sites); anything else means "0"."""
+    v = os.environ.get("EMCID_TPU_FUSED_GN", "0")
+    return v if v in ("0", "1", "geo") else "0"
+
+
+def _fused_ln() -> bool:
+    """``EMCID_TPU_FUSED_LN=1`` routes the transformer-block LayerNorms
+    through the fused kernels."""
+    return os.environ.get("EMCID_TPU_FUSED_LN", "0") == "1"
+
+
+def _gn_act(norm: nn.GroupNorm, x, act: str = "none"):
+    """GroupNorm followed by an optional SiLU: the stock module, or the
+    fused kernels with the module's weight and bias."""
+    mode = _fused_gn()
+    if mode != "0":
+        return group_norm_act(x, norm.weight, norm.bias,
+                              num_groups=norm.num_groups, eps=norm.eps,
+                              act=act, geo_only=mode == "geo")
+    h = norm(x)
+    return F.silu(h) if act == "silu" else h
+
+
+def _ln(norm: nn.LayerNorm, x):
+    """Transformer-block LayerNorm (eps 1e-5): the stock module, or the
+    fused kernels with its weight and bias."""
+    if _fused_ln():
+        return layer_norm_act(x, norm.weight, norm.bias, eps=norm.eps)
+    return norm(x)
+
+
 class ResnetBlock2D(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, temb_dim: int, groups: int):
         super().__init__()
@@ -58,9 +104,9 @@ class ResnetBlock2D(nn.Module):
             self.conv_shortcut = nn.Conv2d(in_ch, out_ch, 1)
 
     def forward(self, x, temb):
-        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv1(_gn_act(self.norm1, x, "silu"))
         h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv2(_gn_act(self.norm2, h, "silu"))
         if hasattr(self, "conv_shortcut"):
             x = self.conv_shortcut(x)
         return x + h
@@ -121,9 +167,9 @@ class BasicTransformerBlock(nn.Module):
         self.ff = FeedForward(dim)
 
     def forward(self, x, context):
-        x = x + self.attn1(self.norm1(x))
-        x = x + self.attn2(self.norm2(x), context)
-        return x + self.ff(self.norm3(x))
+        x = x + self.attn1(_ln(self.norm1, x))
+        x = x + self.attn2(_ln(self.norm2, x), context)
+        return x + self.ff(_ln(self.norm3, x))
 
 
 class Transformer2D(nn.Module):
@@ -141,7 +187,7 @@ class Transformer2D(nn.Module):
 
     def forward(self, x, context):
         B, C, H, W = x.shape
-        h = self.norm(x)
+        h = _gn_act(self.norm, x)
         if self.use_linear:
             h = self.proj_in(h.permute(0, 2, 3, 1).reshape(B, H * W, C))
         else:
@@ -300,5 +346,5 @@ class UNet2DCondition(nn.Module):
             if hasattr(blk, "upsamplers"):
                 h = blk.upsamplers[0](h)
 
-        h = self.conv_out(F.silu(self.conv_norm_out(h)))
+        h = self.conv_out(_gn_act(self.conv_norm_out, h, "silu"))
         return UNetOutput(sample=h)

@@ -1,1 +1,1 @@
-"""Attention (hand-written CUDA kernels with plain PyTorch versions) and the closed-form solve."""
+"""Attention and the fused GroupNorm/LayerNorm (hand-written CUDA kernels with plain PyTorch versions) and the closed-form solve."""

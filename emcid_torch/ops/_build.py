@@ -24,18 +24,20 @@ from typing import Dict, Optional
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("flash_v2.cu", "short_kv.cu")
+SOURCES = ("flash_v2.cu", "short_kv.cu", "groupnorm.cu", "layernorm.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 KERNELS = ("K1 flash_v2_fwd", "K2 flash_v2_dq", "K3 flash_v2_dkv",
-           "K4 short_kv_fwd")
+           "K4 short_kv_fwd", "K5f groupnorm_fwd", "K5b groupnorm_bwd",
+           "K6f layernorm_fwd", "K6b layernorm_bwd")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _lib: Optional[ctypes.CDLL] = None
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 _SIGNATURES = {
     # q, k, v, o, lse, B, H, N, M, D, scale, dtype, stream
     "emcid_flash_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
@@ -45,6 +47,18 @@ _SIGNATURES = {
     "emcid_flash_dkv": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
     # q, k, v, o, B, H, N, M, D, scale, dtype, stream
     "emcid_short_kv_fwd": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
+    # x, gamma, beta, y, stats, B, C, S, G, eps, act, dtype, pdtype, stream
+    "emcid_gn_fwd": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _I, _P],
+    # x, g, gamma, beta, stats, dx, dgamma, dbeta, B, C, S, G, act, dtype,
+    # pdtype, stream
+    "emcid_gn_bwd": [_P] * 8 + [_I] * 7 + [_P],
+    # x, gamma, beta, y, rows, C, eps, act, dtype, pdtype, stream
+    "emcid_ln_fwd": [_P] * 4 + [_L, _I, _F, _I, _I, _I, _P],
+    # rows, C -> the backward's block count (not a launch)
+    "emcid_ln_bwd_blocks": [_L, _I],
+    # x, g, gamma, beta, dx, dgamma, dbeta, rows, C, eps, act, nblocks,
+    # dtype, pdtype, stream
+    "emcid_ln_bwd": [_P] * 7 + [_L, _I, _F, _I, _I, _I, _I, _P],
 }
 
 

@@ -122,6 +122,18 @@ class CLIPBPETokenizer:
         path = Path(path)
         return cls.from_files(path / "vocab.json", path / "merges.txt", **kw)
 
+    def save_pretrained(self, path) -> None:
+        """Write HF-format ``vocab.json`` + ``merges.txt`` (merges in rank
+        order), which ``from_pretrained_dir`` reads back."""
+        path = Path(path)
+        path.mkdir(parents=True, exist_ok=True)
+        with open(path / "vocab.json", "w", encoding="utf-8") as f:
+            json.dump(self.encoder, f, ensure_ascii=False)
+        merges = sorted(self.bpe_ranks, key=self.bpe_ranks.get)
+        with open(path / "merges.txt", "w", encoding="utf-8") as f:
+            f.write("#version: 0.2\n")
+            f.writelines(f"{a} {b}\n" for a, b in merges)
+
     # -- BPE ---------------------------------------------------------------
     def _bpe(self, token: str) -> str:
         if token in self._bpe_cache:

@@ -2,6 +2,7 @@
 """Where the time of the port's main path goes, on one NVIDIA GPU.
 
     python3 scripts/torch_prof_main_path.py [--out results/prof_main_path.json]
+    EMCID_TPU_FUSED_GN=1 EMCID_TPU_FUSED_LN=1 python3 scripts/torch_prof_main_path.py
 
 Runs ``apply_emcid`` on the full-width SD-v1.4 pipeline (random bf16
 weights) with the configuration ``chip_smoke.py`` drives (4 concepts x 3
@@ -12,8 +13,11 @@ Prints one JSON object: the phase times of the timed and the profiled run,
 the device time of each hand-written kernel and of the other kernels
 grouped by name, and the device's busy share of the timed run's wall time
 (busy = the sum of the device time of every kernel in the profiled run;
-they run one at a time on the one stream).  The top kernels go to
-``--out``.
+they run one at a time on the one stream).  The norm knobs come from the
+environment and are printed with the result; beside the hand-written
+kernels it sums PyTorch's own GroupNorm/LayerNorm kernels and the SiLU
+kernels, which the fused norms (K5/K6) replace at the UNet's sites.  The
+top kernels go to ``--out``.
 """
 
 from __future__ import annotations
@@ -37,7 +41,21 @@ OWN_KERNELS = {
     "K2 flash_v2_dq": ("namespace)::dq_tc_kernel", "namespace)::dq_kernel"),
     "K3 flash_v2_dkv": ("namespace)::dkv_tc_kernel", "namespace)::dkv_kernel"),
     "K4 short_kv_fwd": ("namespace)::short_kv_kernel",),
+    "K5f groupnorm_fwd": ("namespace)::gn_fwd_kernel",),
+    "K5b groupnorm_bwd": ("namespace)::gn_bwd_kernel",),
+    "K6f layernorm_fwd": ("namespace)::ln_fwd_kernel",),
+    "K6b layernorm_bwd": ("namespace)::ln_bwd_kernel",),
 }
+# substrings of PyTorch's native GroupNorm/LayerNorm kernels (statistics,
+# fused parameters, the normalise pass, the gradients) and of its SiLU
+STOCK = {
+    "stock GroupNorm/LayerNorm": (
+        "RowwiseMoments", "ComputeFusedParams", "GroupNorm", "group_norm",
+        "LayerNorm", "layer_norm", "ComputeInternalGradients",
+        "ComputeBackwardFusedParams", "GammaBeta", "ComputeGradOutput"),
+    "stock SiLU": ("silu",),
+}
+KNOBS = ("EMCID_TPU_FUSED_GN", "EMCID_TPU_FUSED_LN")
 
 
 def run_once(torch, comps, hp, requests, stats_dir):
@@ -92,21 +110,28 @@ def main() -> int:
         by_name[evt.key][0] += dev_us / 1e3
         by_name[evt.key][1] += evt.count
     busy_ms = sum(ms for ms, _ in by_name.values())
-    own = {}
-    for label, subs in OWN_KERNELS.items():
-        hits = [v for k, v in by_name.items() if any(x in k for x in subs)]
-        own[label] = dict(ms=sum(v[0] for v in hits),
-                          calls=sum(v[1] for v in hits))
+    def group(table):
+        out = {}
+        for label, subs in table.items():
+            hits = [v for k, v in by_name.items()
+                    if any(x in k for x in subs)]
+            out[label] = dict(ms=sum(v[0] for v in hits),
+                              calls=sum(v[1] for v in hits))
+        return out
+
+    own = group(OWN_KERNELS)
     own_ms = sum(v["ms"] for v in own.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
     result = dict(
         device=torch.cuda.get_device_name(0), nvidia_smi=nvidia_smi_line(),
+        knobs={k: os.environ.get(k, "0") for k in KNOBS},
         warm_run_s=warm_s, timed_wall_s=timed_s, timed_phases_s=timed,
         profiled_wall_s=wall_s, profiled_phases_s=timings,
         device_busy_ms=busy_ms,
         device_idle_share=max(0.0, 1.0 - busy_ms / (timed_s * 1e3)),
         own_kernels=own, own_kernels_ms=own_ms,
         own_kernels_share_of_busy=own_ms / busy_ms if busy_ms else None,
+        stock_kernels=group(STOCK),
         top_kernels=[dict(name=k[:120], ms=v[0], calls=v[1])
                      for k, v in top])
     out = REPO / args.out

@@ -44,7 +44,10 @@ def test_port_modules_import_without_jax():
         [sys.executable, "-c", _PROBE.format(forbidden=set(FORBIDDEN))],
         cwd=REPO, capture_output=True, text=True, timeout=300, check=True)
     result = json.loads(out.stdout.strip().splitlines()[-1])
-    assert len(result["modules"]) >= 25, result["modules"]
+    assert len(result["modules"]) >= 29, result["modules"]
+    assert {"emcid_torch.cli", "emcid_torch.cli.run_emcid",
+            "emcid_torch.ops.groupnorm", "emcid_torch.ops.layernorm",
+            } <= set(result["modules"])
     assert result["forbidden"] == []
 
 
