@@ -2,27 +2,32 @@
 """Drive the PyTorch/CUDA port (``emcid_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels-only   # phases 1-2, no device line
 
 Phases, each printing one JSON line:
 
 1. device: the card, its power limit, the kernel build time;
 2. one phase per hand-written kernel (K1-K6) at the shapes the main paths
    give it: the kernel against its plain PyTorch version on the same
-   inputs (bf16 at the product shapes, f32 at small ragged shapes; the
-   norm kernels also through their autograd.Function against autograd of
-   the plain math), and the kernel's, the plain version's and one library
-   call's time beside the least time the card could take (``bound_ms``);
+   inputs (bf16 at the product shapes, f32 and bf16 at small ragged
+   shapes; the norm kernels also through their autograd.Function against
+   autograd of the plain math), and the kernel's, the plain version's and
+   one library call's time beside the least time the card could take
+   (``bound_ms``);
 3. the main path: ``apply_emcid`` on the full-width SD-v1.4 pipeline
    (random weights from a seed) in bf16, 4 concepts in one block, with the
-   launch count of every kernel during that run, the phase times, and
-   checks of what comes out (finite z and deltas, only the fc2 weights of
-   the edited layers changed, the on-card Stage-2 solve against the host
-   float64 one);
-4. model checks: that pipeline's UNet in f32 at the Stage-1 shape, with
-   its attention through the kernels (and, with ``EMCID_TPU_FUSED_GN`` at
-   1 or geo and ``EMCID_TPU_FUSED_LN=1``, its norms too) against the same
-   UNet with the knobs off and every attention on the plain path, for eps
-   and for the gradient into the text context;
+   launch count of every kernel (and of each route of K1 and K4) during
+   that run, the phase times, and checks of what comes out (finite z and
+   deltas, only the fc2 weights of the edited layers changed, the on-card
+   Stage-2 solve against the host float64 one, the tensor-core routes of
+   K1 and K4 taken and no float-FMA route);
+4. model checks: that pipeline's bf16 UNet at the Stage-1 shape and its
+   bf16 VAE (decode and re-encode of a 48x48 latent) with attention
+   through the kernels against the plain attention path; the UNet in f32
+   with its attention through the kernels (and, with
+   ``EMCID_TPU_FUSED_GN`` at 1 or geo and ``EMCID_TPU_FUSED_LN=1``, its
+   norms too) against the same UNet with the knobs off and every attention
+   on the plain path, for eps and for the gradient into the text context;
 5. the CLI path: ``emcid_torch.cli.run_emcid`` with both norm knobs on, on
    a local HF-format checkpoint folder of the full-width pipeline (random
    f32 weights from seed 0): pre-edit generation, ``apply_emcid``,
@@ -52,10 +57,13 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 
 # NVIDIA H100 SXM data-sheet peaks (dense): the bound of a kernel is the
-# larger of its bytes over the memory rate and its flops over the rate of
-# its input type.
+# largest of its bytes over the memory rate, its flops over the rate of its
+# input type and, for the attention kernels, its exponentials over the
+# SFU's rate (16 per clock per SM, at the card's SM count and maximum SM
+# clock, read in this run).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+EXP_PER_CLOCK_PER_SM = 16
 
 SOURCES = {
     "K1 flash_v2_fwd": ("emcid_torch/csrc/flash_v2.cu",
@@ -80,6 +88,15 @@ ATTENTION = ("K1 flash_v2_fwd", "K2 flash_v2_dq", "K3 flash_v2_dkv",
 NORMS = ("K5f groupnorm_fwd", "K5b groupnorm_bwd", "K6f layernorm_fwd",
          "K6b layernorm_bwd")
 KNOBS = ("EMCID_TPU_FUSED_GN", "EMCID_TPU_FUSED_LN")
+# the routes a bf16 run of the SD-v1.4 paths must take: K1 on the tensor
+# cores at the UNet's heads (mma) and the VAE's (d512), K4 on the tensor
+# cores, and no float-FMA route of either
+BF16_ROUTES = {"K1 flash_v2_fwd": ("mma", "d512"), "K4 short_kv_fwd": ("mma",)}
+
+
+def routes_ok(routes, expect=BF16_ROUTES) -> bool:
+    return all(routes[k][r] > 0 for k, rs in expect.items() for r in rs) \
+        and all(routes[k]["fma"] == 0 for k in BF16_ROUTES)
 
 
 def emit(obj) -> None:
@@ -114,6 +131,24 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def exp_rate() -> float:
+    """Exponentials per second of the card: SMs x 16 x the maximum SM
+    clock (``nvidia-smi --query-gpu=clocks.max.sm``)."""
+    import torch
+
+    if not hasattr(exp_rate, "value"):
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            timeout=60)
+        mhz = float(out.stdout.strip().splitlines()[0])
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        exp_rate.value = sms * EXP_PER_CLOCK_PER_SM * mhz * 1e6
+        exp_rate.parts = dict(sms=sms, max_sm_clock_mhz=mhz)
+    return exp_rate.value
+
+
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     """Mean device time of ``fn`` over ``reps`` runs (CUDA events).  A
     sleep kernel (~50 ms) holds the card while the host enqueues the runs,
@@ -135,11 +170,15 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float, dtype) -> tuple:
-    t_ops = flops / PEAK_FLOPS[str(dtype)]
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+def bound(flops: float, nbytes: float, dtype, exps: float = 0.0) -> tuple:
+    """(least ms, what bounds it): "operations", "bytes" or
+    "exponentials"."""
+    t = {"operations": flops / PEAK_FLOPS[str(dtype)],
+         "bytes": nbytes / PEAK_BYTES_PER_S}
+    if exps:
+        t["exponentials"] = exps / exp_rate()
+    by = max(t, key=t.get)
+    return t[by] * 1e3, by
 
 
 def rel_err(got, ref) -> tuple:
@@ -188,12 +227,13 @@ def phase_flash_fwd(torch, shapes, failures):
         q, k, v = qkv(B, N, N, H, D, dtype, seed=1)
         s = D ** -0.5
         o, lse = fv2.flash_fwd(q, k, v, s)
+        route = fv2.fwd_route(q, k, v, o)
         o_ref, lse_ref = fv2.flash_fwd_plain(q, k, v, s)
         err, rel, ok = check("K1", o, o_ref, dtype, (B, N, H, D), failures)
         lse_err, lse_rel, lse_ok = check("K1 lse", lse, lse_ref,
                                          torch.float32 if dtype == torch.float32
                                          else dtype, (B, N, H, D), failures)
-        row = dict(phase="kernel", kernel="K1 flash_v2_fwd",
+        row = dict(phase="kernel", kernel="K1 flash_v2_fwd", route=route,
                    shape=[B, N, H, D], dtype=str(dtype), max_abs_err=err,
                    rel_err=rel, lse_rel_err=lse_rel,
                    tolerance=TOL[str(dtype)], ok=ok and lse_ok)
@@ -201,7 +241,8 @@ def phase_flash_fwd(torch, shapes, failures):
             elem = q.element_size()
             flops = 4.0 * B * H * N * N * D
             nbytes = 4.0 * B * N * H * D * elem + B * H * N * 4
-            row["bound_ms"], row["bound_by"] = bound(flops, nbytes, dtype)
+            row["bound_ms"], row["bound_by"] = bound(
+                flops, nbytes, dtype, exps=float(B) * H * N * N)
             row["kernel_ms"] = cuda_ms(lambda: fv2.flash_fwd(q, k, v, s), 5)
             row["plain_ms"] = cuda_ms(lambda: fv2.flash_fwd_plain(q, k, v, s), 2, 1)
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -262,10 +303,13 @@ def phase_flash_bwd(torch, shapes, failures):
             elem = q.element_size()
             nm = float(B) * H * N * N * D
             row_b = 2.0 * B * H * N * 4  # lse, delta
+            # both recompute P: one exponential per score
             k2["bound_ms"], k2["bound_by"] = bound(
-                6 * nm, 5.0 * B * N * H * D * elem + row_b, dtype)
+                6 * nm, 5.0 * B * N * H * D * elem + row_b, dtype,
+                exps=nm / D)
             k3["bound_ms"], k3["bound_by"] = bound(
-                8 * nm, 6.0 * B * N * H * D * elem + row_b, dtype)
+                8 * nm, 6.0 * B * N * H * D * elem + row_b, dtype,
+                exps=nm / D)
             k2["kernel_ms"] = cuda_ms(
                 lambda: fv2.flash_dq(q, k, v, dout, lse, delta, s), 5)
             k3["kernel_ms"] = cuda_ms(
@@ -299,16 +343,18 @@ def phase_short_kv(torch, shapes, failures):
         q, k, v = qkv(B, N, M, H, D, dtype, seed=4)
         s = D ** -0.5
         o = att.short_kv_fwd(q, k, v, s)
+        route = att.short_kv_route(q, k, v, o)
         ref = att.short_kv_fwd_plain(q, k, v, s)
         err, rel, ok = check("K4", o, ref, dtype, (B, N, M, H, D), failures)
-        row = dict(phase="kernel", kernel="K4 short_kv_fwd",
+        row = dict(phase="kernel", kernel="K4 short_kv_fwd", route=route,
                    shape=[B, N, M, H, D], dtype=str(dtype), max_abs_err=err,
                    rel_err=rel, tolerance=TOL[str(dtype)], ok=ok)
         if product_shape(N, dtype):
             elem = q.element_size()
             row["bound_ms"], row["bound_by"] = bound(
                 4.0 * B * H * N * M * D,
-                (2.0 * B * N + 2.0 * B * M) * H * D * elem, dtype)
+                (2.0 * B * N + 2.0 * B * M) * H * D * elem, dtype,
+                exps=float(B) * H * N * M)
             row["kernel_ms"] = cuda_ms(lambda: att.short_kv_fwd(q, k, v, s), 10)
             row["plain_ms"] = cuda_ms(
                 lambda: att.short_kv_fwd_plain(q, k, v, s), 5)
@@ -513,17 +559,28 @@ def phase_layernorm(torch, shapes, failures):
 def kernel_phases(torch, failures):
     bf, f32 = torch.bfloat16, torch.float32
     rows = []
+    # K1: ragged f32 (fma route) and bf16 (mma, d512) shapes; the level-0
+    # Stage-1/training shape; the VAE mid-block at the main path's batch
+    # (4 concepts x 3 prompts) and at 512 px (the CLI's renders); 512-px
+    # levels 0 and 1
     rows += phase_flash_fwd(torch, [
         ((2, 300, 2, 40), f32), ((2, 300, 2, 80), f32),
         ((1, 300, 1, 512), f32), ((2, 300, 2, 40), bf), ((2, 300, 2, 80), bf),
-        ((24, 2304, 8, 40), bf), ((4, 2304, 1, 512), bf),
-        ((24, 4096, 8, 40), bf)], failures)
+        ((1, 300, 1, 512), bf),
+        ((24, 2304, 8, 40), bf), ((12, 2304, 1, 512), bf),
+        ((4, 2304, 1, 512), bf), ((2, 4096, 1, 512), bf),
+        ((24, 4096, 8, 40), bf), ((4, 1024, 8, 80), bf)], failures)
     rows += phase_flash_bwd(torch, [((2, 300, 2, 40), f32),
                                     ((2, 300, 2, 80), f32),
                                     ((2, 300, 2, 40), bf), ((2, 300, 2, 80), bf),
                                     ((12, 2304, 8, 40), bf)], failures)
-    rows += phase_short_kv(torch, [((2, 300, 77, 2, 40), f32),
-                                   ((24, 2304, 77, 8, 40), bf)], failures)
+    # K4: ragged f32 (fma) and bf16 (mma; M = 200 takes three key chunks
+    # and the online rescale); the level-0 cross-attention; 512 px levels 0
+    # and 1
+    rows += phase_short_kv(torch, [
+        ((2, 300, 77, 2, 40), f32), ((2, 300, 77, 2, 40), bf),
+        ((2, 300, 200, 2, 40), bf), ((24, 2304, 77, 8, 40), bf),
+        ((4, 4096, 77, 8, 40), bf), ((4, 1024, 77, 8, 80), bf)], failures)
     # (B, S, C, G, eps): the level-0 resnet norm of training-image
     # generation, a level-1 up-path concat in Stage 1, the mid-block
     # Transformer2D norm, then ragged f32 shapes
@@ -598,6 +655,7 @@ def main_path(torch, failures):
         torch.cuda.synchronize()
         total_s = time.time() - t0
         launches = dict(_build.LAUNCHES)
+        routes = copy.deepcopy(_build.ROUTES)
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         z_list, missing = load_z_list(requests, cache_name, hp)
     zs = np.stack(z_list)
@@ -631,7 +689,8 @@ def main_path(torch, failures):
         concepts=len(requests), prompts=3, grad_steps=hp.v_num_grad_steps,
         gen_steps=10, train_res=384, build_pipeline_s=build_s,
         total_s=total_s, **{f"{k}_s": v for k, v in timings.items()},
-        peak_mem_gb=peak_gb, launches=launches, z_shape=list(zs.shape),
+        peak_mem_gb=peak_gb, launches=launches, routes=routes,
+        bf16_routes_ok=routes_ok(routes), z_shape=list(zs.shape),
         z_finite=bool(np.isfinite(zs).all() and not missing),
         deltas_finite=all(np.isfinite(a).all() and np.isfinite(r).all()
                           for a, r in deltas.values()),
@@ -639,7 +698,8 @@ def main_path(torch, failures):
         stage2_f32_ir_vs_f64_rel=rel, stage2_rel_tolerance=1e-3)
     row["ok"] = (row["z_finite"] and row["deltas_finite"]
                  and row["only_fc2_of_edit_layers"] and rel[first] < 1e-3
-                 and all(launches[k] > 0 for k in ATTENTION))
+                 and all(launches[k] > 0 for k in ATTENTION)
+                 and row["bf16_routes_ok"])
     emit(row)
     if not row["ok"]:
         failures.append(f"main path: {row}")
@@ -702,6 +762,74 @@ def model_check(torch, unet, failures, gn="0", ln="0"):
     return launches
 
 
+# bf16 on both sides, but the kernels and the plain path round at other
+# points (the kernels round P to bf16 once, in f32 softmax order; the
+# plain path rounds the scores, q * scale and P), and the differences
+# pass through some thirty attention, conv and norm layers: 5e-2 of the
+# largest value
+BF16_MODEL_TOL = 5e-2
+
+
+def model_check_bf16(torch, comps, failures):
+    """The main path's bf16 UNet at the Stage-1 shape (eps and the gradient
+    into the text context) and its bf16 VAE (decode of a (2, 4, 48, 48)
+    latent, re-encode of the decoded image), attention through the kernels
+    (K1 mma and d512, K4 mma; K2/K3 and K4's chunked backward) against the
+    same modules with every attention on the plain einsum/softmax path
+    (``EMCID_TPU_FLASH_MIN_SEQ=10**9``); the norm knobs off."""
+    from emcid_torch.ops import _build
+
+    bf = torch.bfloat16
+    unet, vae = comps.unet, comps.vae
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(2, 4, 48, 48, generator=g, device="cuda").to(bf)
+    t = torch.tensor([500, 20], device="cuda")
+    ctx0 = torch.randn(2, 77, unet.config.cross_attention_dim, generator=g,
+                       device="cuda").to(bf)
+    w = torch.randn(2, 4, 48, 48, generator=g, device="cuda").to(bf)
+    lat = torch.randn(2, 4, 48, 48, generator=g, device="cuda").to(bf)
+
+    def unet_eps_and_grad():
+        ctx = ctx0.clone().requires_grad_()
+        eps = unet(x, t, ctx).sample
+        grad, = torch.autograd.grad((eps.float() * w.float()).sum(), ctx)
+        return eps.detach(), grad
+
+    @torch.no_grad()
+    def vae_decode_encode(img=None):
+        dec = vae.decode(lat)
+        return dec, vae.encode(dec if img is None else img).mean
+
+    with environ(**dict.fromkeys(KNOBS)):
+        _build.reset_launches()
+        eps_k, grad_k = unet_eps_and_grad()
+        unet_routes = copy.deepcopy(_build.ROUTES)
+        _build.reset_launches()
+        with environ(EMCID_TPU_FLASH_MIN_SEQ=str(10 ** 9)):
+            eps_p, grad_p = unet_eps_and_grad()
+            img_p, z_p = vae_decode_encode()
+        dec_k, z_k = vae_decode_encode(img_p)  # both encode the same image
+        vae_routes = copy.deepcopy(_build.ROUTES)
+    errs = dict(eps_rel_err=rel_err(eps_k, eps_p)[1],
+                ctx_grad_rel_err=rel_err(grad_k, grad_p)[1],
+                vae_decode_rel_err=rel_err(dec_k, img_p)[1],
+                vae_encode_rel_err=rel_err(z_k, z_p)[1])
+    row = dict(phase="model_check", what="sd-v1.4 UNet and VAE bf16, B=2, "
+               "48x48 latents, kernels vs plain attention", **errs,
+               tolerance=BF16_MODEL_TOL, unet_routes=unet_routes,
+               vae_routes=vae_routes)
+    finite = all(bool(torch.isfinite(a).all())
+                 for a in (eps_k, grad_k, dec_k, z_k))
+    row["ok"] = (all(e <= BF16_MODEL_TOL for e in errs.values()) and finite
+                 and routes_ok(unet_routes, {"K1 flash_v2_fwd": ("mma",),
+                                             "K4 short_kv_fwd": ("mma",)})
+                 and vae_routes["K1 flash_v2_fwd"]["d512"] > 0)
+    emit(row)
+    if not row["ok"]:
+        failures.append(f"bf16 model check: {row}")
+    torch.cuda.empty_cache()
+
+
 VAL_PROMPTS = ["a photo of a w0", "an image of a w2"]
 
 
@@ -726,7 +854,7 @@ def cli_path(torch, failures):
         free_gb = shutil.disk_usage(tmp).free / 2 ** 30
         if free_gb < 10:  # the f32 folder takes 4.3 GB
             failures.append(f"CLI path: {free_gb:.1f} GB free in {tmp}")
-            return {}
+            return {}, {}
         t0 = time.time()
         comps = build_random_pipeline("sd-v1.4", dtype=torch.float32, seed=0,
                                       device="cuda")
@@ -759,6 +887,7 @@ def cli_path(torch, failures):
             torch.cuda.synchronize()
             total_s = time.time() - t0
             launches = dict(_build.LAUNCHES)
+            routes = copy.deepcopy(_build.ROUTES)
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         z_list, missing = load_z_list(REQUESTS, f"{tmp / 'z'}/{name}/", hp)
         images = {phase: [np.asarray(Image.open(f)) for f in
@@ -781,7 +910,7 @@ def cli_path(torch, failures):
         sampler="dpm++", steps=10, gen_res=512,
         checkpoint_gb=ckpt_gb, write_checkpoint_s=write_s, total_s=total_s,
         **{f"{k}_s": v for k, v in timings.items()}, peak_mem_gb=peak_gb,
-        launches=launches,
+        launches=launches, routes=routes, bf16_routes_ok=routes_ok(routes),
         z_finite=bool(not missing and all(np.isfinite(z).all()
                                           for z in z_list)),
         deltas_finite=all(np.isfinite(a).all() and np.isfinite(r).all()
@@ -791,35 +920,42 @@ def cli_path(torch, failures):
         images_uint8_512=images_ok)
     row["ok"] = (row["z_finite"] and row["deltas_finite"]
                  and row["only_fc2_of_edit_layers"] and images_ok
-                 and all(launches[k] > 0 for k in SOURCES))
+                 and all(launches[k] > 0 for k in SOURCES)
+                 and row["bf16_routes_ok"])
     emit(row)
     if not row["ok"]:
         failures.append(f"CLI path: {row}")
     del edited
     torch.cuda.empty_cache()
-    return launches
+    return launches, routes
 
 
-def kernel_table(rows, launches):
+def kernel_table(rows, launches, routes):
     """One entry per kernel: the product-shape bf16 measurement of the
-    first shape the main paths give it, and its launches in the run that
-    ``launches`` counts."""
+    first shape the main paths give it, and its launches (per route, where
+    it has several) in the run that ``launches`` and ``routes`` count."""
     table = []
     for name, (source, replaces) in SOURCES.items():
         timed = [r for r in rows if r["kernel"] == name and "kernel_ms" in r]
         r = timed[0]
-        table.append(dict(
+        entry = dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches.get(name, 0),
             max_abs_err=max(x["max_abs_err"] for x in rows
                             if x["kernel"] == name),
             ms=r["kernel_ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
-            shape=r["shape"]))
+            shape=r["shape"])
+        if name in routes:
+            entry["route_launches"] = routes[name]
+            entry["kernel_route"] = r["route"]
+        table.append(entry)
     return table
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    kernels_only = "--kernels-only" in argv
     try:
         import torch
     except ImportError:
@@ -841,21 +977,28 @@ def main() -> int:
     emit(dict(phase="device", name=torch.cuda.get_device_name(0),
               nvidia_smi=smi, torch=torch.__version__,
               cuda=torch.version.cuda, kernel_build_s=time.time() - t0))
+    emit(dict(phase="exp_rate", exponentials_per_s=exp_rate(),
+              per_clock_per_sm=EXP_PER_CLOCK_PER_SM, **exp_rate.parts))
     failures = []
     rows = kernel_phases(torch, failures)
+    if kernels_only:
+        for f in failures:
+            print(f"FAILED: {f}", file=sys.stderr)
+        return 1 if failures else 0
     _, comps = main_path(torch, failures)
+    model_check_bf16(torch, comps, failures)
     unet = copy.deepcopy(comps.unet).float()
     del comps
     for gn, ln in (("0", "0"), ("1", "1"), ("geo", "1")):
         model_check(torch, unet, failures, gn, ln)
     del unet
     torch.cuda.empty_cache()
-    launches = cli_path(torch, failures)
+    launches, routes = cli_path(torch, failures)
     if failures:
         for f in failures:
             print(f"FAILED: {f}", file=sys.stderr)
         return 1
-    emit({"kernels": kernel_table(rows, launches)})
+    emit({"kernels": kernel_table(rows, launches, routes)})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -13,46 +13,66 @@
 // TPU layout tricks (transposed scores, 128-lane padding, VMEM block sizes)
 // are not carried over.
 //
-// What bounds it on this card: at the UNet's head dim (D = 40) each score
-// costs 2*D flops against 4*D bytes of Q/K/V that the tile already holds, so
-// the work is arithmetic (the bf16 tensor-core rate), and the N x M score
-// matrix never touches device memory.  Two paths:
+// The forward has three routes, each with its own C entry point; the
+// wrapper (emcid_torch/ops/flash_v2.py: fwd_route) picks one:
 //
-// * bf16 with 32 < D <= 80 (the UNet's level-0 and level-1 heads): the
-//   products run on the tensor cores as 16x16x16 WMMA fragments (head dim
-//   zero-padded to a multiple of 16), four warps per 64-row tile, each warp
-//   owning 16 rows so the softmax row reductions need only the warp.  The
-//   dQ and dK/dV accumulators stay in registers; the forward's output
-//   accumulator goes through shared memory once per key tile to be
-//   rescaled.  Tiles stream in by cp.async, double-buffered.  What holds
-//   it back now is the score tile's round trip
-//   through shared memory and the scalar softmax between the products;
-//   mma.sync register fragments (no round trip), then wgmma with TMA, are
-//   the next steps.
-// * float32, and bf16 at other head dims (the VAE's single 512-wide head):
-//   float FMAs out of shared memory, bounded by the shared-memory load rate
-//   (two loads per FMA).  Every operand of a tile is kept as float with row
+// * mma (emcid_flash_fwd_mma): bf16 with 32 < D <= 80, D % 8 == 0, the
+//   UNet's level-0 and level-1 heads (D = 40, 80).  At D = 40 each score
+//   costs 2 * 40 + 2 * 40 tensor flops and one exponential, and the SFU
+//   does 16 exponentials per clock per SM against the tensor cores' 4096
+//   dense bf16 flops: the exponentials bound it first, then the flops; the
+//   N x M scores never touch memory.  So everything between the two
+//   products stays in registers (mma.cuh): S = Q.K^T by mma.sync m16n8k16
+//   (and one m16n8k8 step where D % 16 == 8, so no flop is spent on
+//   padding) from ldmatrix fragments, the online softmax with the scale
+//   folded into one FFMA per score before ex2, P rounded to bf16 straight
+//   into A fragments, O rescaled in registers.  Q's fragments load once per
+//   warp; K/V tiles of 64 keys arrive by cp.async in a ring of stages (rows
+//   padded to a multiple of 16 plus 8 elements: 16-byte rows, no ldmatrix
+//   bank conflicts), each thread copying fixed 16-byte chunks so a tile
+//   costs it a few integer operations; the first tile (no rescale) is its
+//   own copy of the loop body; O leaves through shared memory in 16-byte
+//   stores.  At these sizes the kernel is bound by instruction dispatch and
+//   latency more than by any one pipe, so the block shape is the one that
+//   keeps the most warps resident: see FwdMma below.
+// * d512 (emcid_flash_fwd_d512): bf16 with D = 512, the VAE's single
+//   mid-block head, bound by the tensor flops.  A warp's 16 x 512 f32
+//   accumulator would need 256 registers a thread, so the head dim is split:
+//   8 warps = 4 row groups of 16 x 2 halves of D.  The 64 x 512 Q tile
+//   stays in shared memory; K/V tiles of 32 keys come in two stages; each
+//   warp computes its half's partial scores, the two warps of a pair swap
+//   them through shared memory and add (in the same order, so both hold the
+//   same scores), both run the softmax of their 16 rows, and each
+//   accumulates P.V for its 256 output columns (128 registers).  One block
+//   of 256 threads per SM (211 KB of shared memory).
+// * fma (emcid_flash_fwd): float32, and bf16 at any other head dim, on float
+//   FMAs out of shared memory, bounded by the shared-memory load rate (two
+//   loads per FMA).  Every operand of a tile is kept as float with row
 //   stride D + 1, so a column walk across rows is free of bank conflicts,
 //   and the softmax row reductions run one warp per row with shuffles.
 //
-// Both read each K/V (K1, K2) or Q/dO (K3) tile from device memory once per
-// block.
+// K2/K3 pick their route here: bf16 with 32 < D <= 80 runs the products as
+// 16x16x16 WMMA fragments whose score tiles round-trip through shared
+// memory (the next redesign puts them on mma.cuh too); everything else on
+// float FMAs.  Every kernel reads each K/V (K1, K2) or Q/dO (K3) tile from
+// device memory once per block.
 //
 // Tensors are (B, L, H, D) contiguous, bf16 or f32; lse and delta are
-// (B, H, N) f32.  Accumulation is f32 throughout.  Each C entry point
-// launches on the given stream, allocates nothing, and returns
-// cudaGetLastError().
+// (B, H, N) f32, lse in natural-log units.  Accumulation is f32 throughout.
+// Each C entry point launches on the given stream, allocates nothing, and
+// returns cudaGetLastError().
 
 #include "common.cuh"  // cuda_bf16.h first: mma.h's bf16 fragments need it
+#include "mma.cuh"
 
 #include <mma.h>
 
 #include <cstdint>
 #include <initializer_list>
+#include <type_traits>
 
 using namespace emcid;
 using namespace nvcuda;
-using bf16 = __nv_bfloat16;
 
 namespace {
 
@@ -60,9 +80,9 @@ struct Tiles {
   int bq, bk;
 };
 
-// Forward: the UNet head dims (40/80/160) fit 64 x 64 tiles; the VAE's
-// single 512-wide head needs a short query tile to keep Q, K, V and the
-// output accumulator inside 227 KB.
+// Forward (fma route): head dims up to 128 fit 64 x 64 tiles; wider heads
+// need a short query tile to keep Q, K, V and the output accumulator
+// inside 227 KB.
 Tiles fwd_tiles(int D) { return D <= 128 ? Tiles{64, 64} : Tiles{16, 32}; }
 // Backward holds Q, dO, K, V, two score tiles and two accumulators.
 Tiles bwd_tiles(int D) { return D <= 64 ? Tiles{64, 64} : Tiles{32, 32}; }
@@ -295,16 +315,16 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core path: bf16 inputs with 32 < D <= 80 and D % 8 == 0 (the
-// UNet's level-0 and level-1 heads, D = 40 and 80).  Four warps per block;
-// each warp owns 16 rows of the block's 64-row tile (query rows in the
-// forward and dQ, key rows in dK/dV), so the row reductions need only the
-// warp.  Products are 16x16x16 bf16 WMMA fragments with f32 accumulators,
-// out of bf16 tiles in shared memory whose head dim is zero-padded to DP (a
-// multiple of 16).  The streamed tiles (K/V, or Q/dO with their row
-// statistics) arrive by 16-byte cp.async copies in two stages, so the next
-// tile's copy overlaps this tile's products.  P and dS are rounded to bf16
-// before their products with V, K, dO or Q; every sum is f32.
+// K2/K3 tensor-core path: bf16 inputs with 32 < D <= 80 and D % 8 == 0.
+// Four warps per block; each warp owns 16 rows of the block's 64-row tile
+// (query rows in dQ, key rows in dK/dV), so the row reductions need only
+// the warp.  Products are 16x16x16 bf16 WMMA fragments with f32
+// accumulators, out of bf16 tiles in shared memory whose head dim is
+// zero-padded to DP (a multiple of 16).  The streamed tiles (K/V, or Q/dO
+// with their row statistics) arrive by 16-byte cp.async copies in two
+// stages, so the next tile's copy overlaps this tile's products.  P and dS
+// are rounded to bf16 before their products with K, dO or Q; every sum is
+// f32.
 // ---------------------------------------------------------------------------
 
 constexpr int kTcTile = 64;  // query and key rows per tile
@@ -330,27 +350,8 @@ using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_majo
 using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-// Asynchronous copies from device to shared memory (cp.async): `bytes` are
-// copied when `pred` holds, zeros are written otherwise.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
-               "r"(pred ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
-
 // Start copying rows [r0, r0 + 64) of head (b, h) into a bf16 tile with row
-// stride ld, 16 bytes at a time (D % 8 == 0); columns [D, DP) and rows at or
-// past L are zero.
+// stride ld; columns [D, DP) and rows at or past L are zero.
 template <int DP>
 __device__ __forceinline__ void tile_async(bf16* dst, const bf16* src, int b, int h, int r0,
                                            int L, int H, int D, int ld) {
@@ -438,102 +439,6 @@ __device__ __forceinline__ void store_rows(bf16* dst, FragC (&acc)[DP / 16], flo
       dst[(((long long)b * L + row0 + i) * H + h) * D + d] =
           __float2bfloat16(stage[i * ldo + d] * mul);
   __syncwarp();
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kTcThreads)
-    fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-                  int H, int N, int M, int D, float scale) {
-  using Lay = TcLayout<DP>;
-  constexpr int ldh = Lay::kLdH, ldo = Lay::kLdO, half = Lay::kHalf;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sKV = sQ + half;                                      // 2 stages of (K, V)
-  float* sS = reinterpret_cast<float*>(sKV + 4 * half);       // scores
-  bf16* sP = reinterpret_cast<bf16*>(sS + kTcTile * kLdS);    // probabilities
-  float* sO = reinterpret_cast<float*>(sP + kTcTile * kLdP);  // output accumulator
-  float* sM = sO + kTcTile * ldo;                             // running row max
-  float* sL = sM + kTcTile;                                   // running row sum
-  const int b = blockIdx.y / H, h = blockIdx.y % H, q0 = blockIdx.x * kTcTile;
-  const int lane = threadIdx.x % 32, r0 = (threadIdx.x / 32) * 16;
-  const int tiles = (M + kTcTile - 1) / kTcTile;
-
-  tile_async<DP>(sQ, q, b, h, q0, N, H, D, ldh);
-  tile_async<DP>(sKV, k, b, h, 0, M, H, D, ldh);
-  tile_async<DP>(sKV + half, v, b, h, 0, M, H, D, ldh);
-  cp_async_commit();
-  for (int e = threadIdx.x; e < kTcTile * ldo; e += blockDim.x) sO[e] = 0.f;
-  for (int i = threadIdx.x; i < kTcTile; i += blockDim.x) {
-    sM[i] = kNegInf;
-    sL[i] = 0.f;
-  }
-  for (int t = 0; t < tiles; ++t) {
-    const int k0 = t * kTcTile;
-    const bf16* sK = sKV + (t & 1) * 2 * half;
-    const bf16* sV = sK + half;
-    if (t + 1 < tiles) {  // the next tile's copies overlap this tile's work
-      bf16* next = sKV + ((t + 1) & 1) * 2 * half;
-      tile_async<DP>(next, k, b, h, k0 + kTcTile, M, H, D, ldh);
-      tile_async<DP>(next + half, v, b, h, k0 + kTcTile, M, H, D, ldh);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    scores_to_smem<DP>(sS + r0 * kLdS, sQ + r0 * ldh, sK, ldh);
-    __syncwarp();
-    {
-      // online softmax: lanes 2i and 2i + 1 share row r0 + i, 32 columns
-      // each; every lane starts its walk at its own column, so the 32 lanes
-      // read 32 distinct banks
-      const int i = r0 + lane / 2, half = lane % 2, c0 = k0 + half * 32;
-      const float* row = sS + i * kLdS + half * 32;
-      float mx = kNegInf;
-      for (int jj = 0; jj < 32; ++jj) {
-        const int j = (jj + lane) & 31;
-        if (c0 + j < M) mx = fmaxf(mx, row[j] * scale);
-      }
-      const float m_old = sM[i];
-      mx = fmaxf(fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1)), m_old);
-      bf16* prow = sP + i * kLdP + half * 32;
-      float sum = 0.f;
-      for (int jj = 0; jj < 32; ++jj) {
-        const int j = (jj + lane) & 31;
-        const float p = c0 + j < M ? __expf(row[j] * scale - mx) : 0.f;
-        prow[j] = __float2bfloat16(p);
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      const float c = __expf(m_old - mx);
-      float* orow = sO + i * ldo + half * (DP / 2);
-      for (int dd = 0; dd < DP / 2; ++dd) orow[(dd + lane) % (DP / 2)] *= c;
-      __syncwarp();  // both lanes of the pair have read sM[i]
-      if (half == 0) {
-        sL[i] = sL[i] * c + sum;
-        sM[i] = mx;
-      }
-    }
-    __syncwarp();
-    FragC acc[DP / 16];
-#pragma unroll
-    for (int n = 0; n < DP / 16; ++n)
-      wmma::load_matrix_sync(acc[n], sO + r0 * ldo + n * 16, ldo, wmma::mem_row_major);
-    rows_times_tile<DP>(acc, sP + r0 * kLdP, sV, ldh);
-#pragma unroll
-    for (int n = 0; n < DP / 16; ++n)
-      wmma::store_matrix_sync(sO + r0 * ldo + n * 16, acc[n], ldo, wmma::mem_row_major);
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
-  cp_async_wait<0>();
-  for (int i = r0; i < r0 + 16 && q0 + i < N; ++i) {
-    const int n = q0 + i;
-    const float l = fmaxf(sL[i], 1e-30f);
-    for (int d = lane; d < D; d += 32)
-      o[(((long long)b * N + n) * H + h) * D + d] = __float2bfloat16(sO[i * ldo + d] / l);
-    if (lane == 0) lse[((long long)b * H + h) * N + n] = sM[i] + logf(l);
-  }
 }
 
 template <int DP>
@@ -683,11 +588,6 @@ __global__ void __launch_bounds__(kTcThreads)
 }
 
 template <int DP>
-constexpr size_t fwd_tc_smem() {
-  using L = TcLayout<DP>;
-  return 5 * L::kHalfTile + L::kScoreTile + L::kProbTile + L::kOutTile + 2 * L::kRows;
-}
-template <int DP>
 constexpr size_t dq_tc_smem() {
   using L = TcLayout<DP>;
   return 6 * L::kHalfTile + 2 * L::kScoreTile + L::kProbTile + 2 * L::kRows;
@@ -696,6 +596,204 @@ template <int DP>
 constexpr size_t dkv_tc_smem() {
   using L = TcLayout<DP>;
   return 6 * L::kHalfTile + 2 * L::kScoreTile + 2 * L::kProbTile + 4 * L::kRows;
+}
+
+// ---------------------------------------------------------------------------
+// K1, mma route (bf16, 32 < D <= 80, D % 8 == 0): 128 query rows per block,
+// K/V tiles of 64 keys.  At D = 40 four warps own 32 rows each and four
+// stages are in flight (70 KB); ptxas fits the warp's state (scores 64,
+// output 40, Q 24 registers) in the 168 registers that three resident
+// blocks leave, without spills, so 12 warps share an SM.  Wider heads give
+// each of eight warps 16 rows, with three stages and two blocks per SM.
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct FwdMma {
+  static constexpr bool kTwo = D <= 40;             // two m16 row tiles per warp
+  static constexpr int kMt = kTwo ? 2 : 1;
+  static constexpr int kWarps = kTwo ? 4 : 8;
+  static constexpr int kThreads = kWarps * 32;
+  static constexpr int kStages = kTwo ? 4 : 3;       // K/V tiles in flight
+  static constexpr int kMinBlocks = kTwo ? 3 : 2;    // resident blocks the registers must allow
+  static constexpr int kBk = 64;                     // keys per K/V tile
+  static constexpr int kBq = kWarps * 16 * kMt;      // query rows per block
+  static constexpr int kLd = (D + 15) / 16 * 16 + 8;  // shared-memory row stride
+  static constexpr int kTile = kBk * kLd;            // elements of one K or V tile
+  static constexpr size_t kSmem = sizeof(bf16) * (size_t)(kBq * kLd + 2 * kStages * kTile);
+};
+
+template <int D>
+__global__ void __launch_bounds__(FwdMma<D>::kThreads, FwdMma<D>::kMinBlocks)
+    fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                   int H, int N, int M, float sl2) {
+  using C = FwdMma<D>;
+  constexpr int ld = C::kLd, MT = C::kMt, BK = C::kBk, S = C::kStages, tile = C::kTile;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // kBq x ld; O is staged here at the end
+  bf16* sKV = sQ + C::kBq * ld;                  // S stages of (K, V)
+  const int b = blockIdx.y / H, h = blockIdx.y % H, q0 = blockIdx.x * C::kBq;
+  const int lane = threadIdx.x % 32, r0 = (threadIdx.x / 32) * 16 * MT;
+  const int tiles = (M + BK - 1) / BK, HD = H * D;
+  const bf16* k0 = head_row(k, b, 0, h, M, H, D);
+  const bf16* v0 = head_row(v, b, 0, h, M, H, D);
+  // start copying K/V tile t into its stage; one commit group per tile,
+  // empty past the last, so the count of groups in flight stays fixed
+  auto fetch = [&](int t) {
+    if (t < tiles) {
+      bf16* dst = sKV + (t % S) * 2 * tile;
+      const long long off = (long long)t * BK * HD;
+      copy_rows<BK, D, C::kThreads>(dst, ld, k0 + off, HD, M - t * BK);
+      copy_rows<BK, D, C::kThreads>(dst + tile, ld, v0 + off, HD, M - t * BK);
+    }
+    cp_async_commit();
+  };
+
+  copy_rows<C::kBq, D, C::kThreads>(sQ, ld, head_row(q, b, q0, h, N, H, D), HD, N - q0);
+#pragma unroll
+  for (int t = 0; t < S - 1; ++t) fetch(t);  // Q joins tile 0's group
+  RowState<MT, D / 8> st;
+  row_state_init(st);
+  uint32_t qf[MT][(D + 15) / 16][4];
+  // tile t: wait for it, hand tile t - 1's stage to tile t + S - 1, attend;
+  // the first tile (no rescale, Q's fragments to load) is its own copy
+  auto step = [&](int t, auto first) {
+    cp_async_wait<S - 2>();
+    __syncthreads();  // tile t has landed; every warp is done with tile t - 1
+    if constexpr (decltype(first)::value) load_q(qf, sQ + r0 * ld, ld);
+    fetch(t + S - 1);
+    const bf16* sK = sKV + (t % S) * 2 * tile;
+    attend_tile<MT, D, BK>(st, qf, sK, sK + tile, ld, M - t * BK, sl2, decltype(first)::value);
+  };
+  step(0, std::true_type{});
+  for (int t = 1; t < tiles; ++t) step(t, std::false_type{});
+  cp_async_wait<0>();  // no copy is left in flight at exit
+  float row_lse[MT][2];
+  finish_rows(st, row_lse);
+  // only this warp read its rows of the Q tile: stage O there
+  __syncwarp();
+  stage_rows(sQ + r0 * ld, st, ld);
+  __syncwarp();
+  store_staged(o, sQ + r0 * ld, ld, 16 * MT, D, b, h, q0 + r0, 0, N, H, D);
+  if (lane % 4 == 0) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int n = q0 + r0 + mt * 16 + lane / 4 + 8 * hr;
+        if (n < N) lse[((long long)b * H + h) * N + n] = row_lse[mt][hr];
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K1, d512 route (bf16, D = 512): 8 warps = 4 row groups of 16 query rows x
+// 2 halves of the head dim.
+// ---------------------------------------------------------------------------
+
+constexpr int kBigD = 512;
+constexpr int kBigHalf = kBigD / 2;  // a warp's share of the head dim
+constexpr int kBigLd = kBigD + 8;
+constexpr int kBigBq = 64;  // query rows per block
+constexpr int kBigBk = 32;  // keys per K/V tile
+constexpr int kBigWarps = 8;
+constexpr int kBigTile = kBigBk * kBigLd;
+constexpr int kBigSwap = 16 * 32;  // a warp's 16 x 32 partial scores, one float per lane and reg
+constexpr size_t kBigSmem =
+    sizeof(bf16) * (size_t)(kBigBq * kBigLd + 4 * kBigTile) + sizeof(float) * kBigWarps * kBigSwap;
+
+// Named barrier of the two warps of row group rg (barrier 0 is __syncthreads).
+__device__ __forceinline__ void pair_sync(int rg) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + rg) : "memory");
+}
+
+__global__ void __launch_bounds__(kBigWarps * 32, 1)
+    fwd_d512_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                    int H, int N, int M, float sl2) {
+  constexpr int ld = kBigLd, NT = kBigBk / 8, ND = kBigHalf / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // kBigBq x ld; O is staged here at the end
+  bf16* sKV = sQ + kBigBq * ld;                  // 2 stages of (K, V)
+  float* sSwap = reinterpret_cast<float*>(sKV + 4 * kBigTile);
+  const int b = blockIdx.y / H, h = blockIdx.y % H, q0 = blockIdx.x * kBigBq;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rg = warp / 2, half = warp % 2, r0 = rg * 16, c0 = half * kBigHalf;
+  const int tiles = (M + kBigBk - 1) / kBigBk;
+  float* mine = sSwap + warp * kBigSwap;
+  const float* theirs = sSwap + (warp ^ 1) * kBigSwap;
+
+  constexpr int T = kBigWarps * 32;
+  const int hd = H * kBigD;
+  const bf16* k0 = head_row(k, b, 0, h, M, H, kBigD);
+  const bf16* v0 = head_row(v, b, 0, h, M, H, kBigD);
+  copy_rows<kBigBq, kBigD, T>(sQ, ld, head_row(q, b, q0, h, N, H, kBigD), hd, N - q0);
+  copy_rows<kBigBk, kBigD, T>(sKV, ld, k0, hd, M);
+  copy_rows<kBigBk, kBigD, T>(sKV + kBigTile, ld, v0, hd, M);
+  cp_async_commit();
+  RowState<1, ND> st;
+  row_state_init(st);
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile t has landed; every warp is done with tile t - 1 and its swap
+    if (t + 1 < tiles) {
+      bf16* next = sKV + ((t + 1) & 1) * 2 * kBigTile;
+      const long long off = (long long)(t + 1) * kBigBk * hd;
+      copy_rows<kBigBk, kBigD, T>(next, ld, k0 + off, hd, M - (t + 1) * kBigBk);
+      copy_rows<kBigBk, kBigD, T>(next + kBigTile, ld, v0 + off, hd, M - (t + 1) * kBigBk);
+      cp_async_commit();
+    }
+    const bf16* sK = sKV + (t & 1) * 2 * kBigTile;
+    const bf16* sV = sK + kBigTile;
+    // this warp's half of the scores: Q fragments come from shared memory
+    // per k16 step (64 more registers would not fit beside O)
+    float s[1][NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) s[0][n][r] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < kBigHalf / 16; ++kk) {
+      uint32_t a[4];
+      load_a(a, sQ + r0 * ld + c0 + kk * 16, ld);
+#pragma unroll
+      for (int j = 0; j < kBigBk / 16; ++j) {
+        uint32_t bk[4];
+        load_b_rows(bk, sK + j * 16 * ld + c0 + kk * 16, ld);
+        mma_bf16(s[0][2 * j], a, bk[0], bk[1]);
+        mma_bf16(s[0][2 * j + 1], a, bk[2], bk[3]);
+      }
+    }
+    // swap halves with the other warp of the row group and add: both warps
+    // add the same two numbers, so both hold the same scores
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) mine[(n * 4 + r) * 32 + lane] = s[0][n][r];
+    pair_sync(rg);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) s[0][n][r] += theirs[(n * 4 + r) * 32 + lane];
+    const int valid = M - t * kBigBk;
+    if (valid < kBigBk) mask_keys<1, NT>(s, valid);
+    softmax_tile<1, NT, ND>(st, s, sl2, t == 0);
+    p_times_v<1, kBigBk, ND>(st, s, sV + c0, ld);
+  }
+  float row_lse[1][2];
+  finish_rows(st, row_lse);
+  // only this warp read its rows and half of the Q tile: stage O there
+  __syncwarp();
+  stage_rows(sQ + r0 * ld + c0, st, ld);
+  __syncwarp();
+  store_staged(o, sQ + r0 * ld + c0, ld, 16, kBigHalf, b, h, q0 + r0, c0, N, H, kBigD);
+  if (half == 0 && lane % 4 == 0) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int n = q0 + r0 + lane / 4 + 8 * hr;
+      if (n < N) lse[((long long)b * H + h) * N + n] = row_lse[0][hr];
+    }
+  }
 }
 
 template <typename Kern, typename... Args>
@@ -709,21 +807,18 @@ int launch(Kern kern, dim3 grid, int threads, size_t smem, void* stream, Args...
   return (int)cudaGetLastError();
 }
 
-// The tensor-core path's padded head dim, or 0 where it does not apply: it
-// copies 16-byte pieces, so D % 8 == 0 and every bf16 tensor 16-byte aligned.
+// The K2/K3 tensor-core path's padded head dim, or 0 where it does not apply.
 int tc_dp(int D, std::initializer_list<const void*> tensors) {
-  if (D <= 32 || D > 80 || D % 8) return 0;
-  for (const void* t : tensors)
-    if (reinterpret_cast<uintptr_t>(t) % 16) return 0;
-  return (D + 15) / 16 * 16;
+  return mma_route_ok(D, tensors) ? (D + 15) / 16 * 16 : 0;
 }
 
-template <int DP>
-int fwd_tc_launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
-                  int N, int M, int D, float scale, void* stream) {
-  dim3 grid((N + kTcTile - 1) / kTcTile, B * H);
-  return launch(fwd_tc_kernel<DP>, grid, kTcThreads, fwd_tc_smem<DP>(), stream, (const bf16*)q,
-                (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, H, N, M, D, scale);
+template <int D>
+int fwd_mma_launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
+                   int N, int M, float scale, void* stream) {
+  using C = FwdMma<D>;
+  dim3 grid((N + C::kBq - 1) / C::kBq, B * H);
+  return launch(fwd_mma_kernel<D>, grid, C::kThreads, C::kSmem, stream, (const bf16*)q,
+                (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, H, N, M, scale * kLog2e);
 }
 
 template <int DP>
@@ -788,16 +883,38 @@ int dkv_launch(const void* q, const void* k, const void* v, const void* dout, co
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  bf16 with a head dim the tensor-core
-// path takes goes there; everything else to the float-FMA kernels.
+// The forward's three routes (fwd_route in emcid_torch/ops/flash_v2.py),
+// one C entry point each, all with one signature.  dtype: 0 = float32,
+// 1 = bfloat16; a route given what it does not take returns
+// cudaErrorInvalidValue and launches nothing.
+
+// fma: the float-FMA kernel, float32 or bf16, any head dim.
 extern "C" int emcid_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                                int B, int H, int N, int M, int D, float scale, int dtype,
                                void* stream) {
+  if (M <= 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return fwd_launch<float>(q, k, v, o, lse, B, H, N, M, D, scale, stream);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (const int dp = tc_dp(D, {q, k, v, o}))
-    EMCID_TC_DISPATCH(dp, fwd_tc_launch, q, k, v, o, lse, B, H, N, M, D, scale, stream)
-  return fwd_launch<bf16>(q, k, v, o, lse, B, H, N, M, D, scale, stream);
+  if (dtype == 1) return fwd_launch<bf16>(q, k, v, o, lse, B, H, N, M, D, scale, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// mma: bf16, 32 < D <= 80, D % 8 == 0, 16-byte aligned tensors.
+extern "C" int emcid_flash_fwd_mma(const void* q, const void* k, const void* v, void* o,
+                                   void* lse, int B, int H, int N, int M, int D, float scale,
+                                   int dtype, void* stream) {
+  if (dtype != 1 || M <= 0 || !mma_route_ok(D, {q, k, v, o})) return (int)cudaErrorInvalidValue;
+  EMCID_MMA_DISPATCH(D, fwd_mma_launch, q, k, v, o, lse, B, H, N, M, scale, stream)
+}
+
+// d512: bf16, D = 512, 16-byte aligned tensors.
+extern "C" int emcid_flash_fwd_d512(const void* q, const void* k, const void* v, void* o,
+                                    void* lse, int B, int H, int N, int M, int D, float scale,
+                                    int dtype, void* stream) {
+  if (dtype != 1 || M <= 0 || D != kBigD || !aligned16({q, k, v, o}))
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((N + kBigBq - 1) / kBigBq, B * H);
+  return launch(fwd_d512_kernel, grid, kBigWarps * 32, kBigSmem, stream, (const bf16*)q,
+                (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, H, N, M, scale * kLog2e);
 }
 
 extern "C" int emcid_flash_dq(const void* q, const void* k, const void* v, const void* dout,

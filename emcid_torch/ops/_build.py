@@ -9,6 +9,8 @@ Nothing is built at import: the first kernel launch builds.
 
 Every wrapper that launches a kernel adds one to its entry in ``LAUNCHES``
 right after the launch, so a run can show which kernels it went through.
+K1 and K4 have several routes (one C entry point each, picked in Python);
+their launches are also counted per route in ``ROUTES``.
 """
 
 from __future__ import annotations
@@ -33,20 +35,29 @@ KERNELS = ("K1 flash_v2_fwd", "K2 flash_v2_dq", "K3 flash_v2_dkv",
            "K4 short_kv_fwd", "K5f groupnorm_fwd", "K5b groupnorm_bwd",
            "K6f layernorm_fwd", "K6b layernorm_bwd")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+ROUTES: Dict[str, Dict[str, int]] = {
+    "K1 flash_v2_fwd": {"mma": 0, "d512": 0, "fma": 0},
+    "K4 short_kv_fwd": {"mma": 0, "fma": 0},
+}
 
 _lib: Optional[ctypes.CDLL] = None
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 _SIGNATURES = {
-    # q, k, v, o, lse, B, H, N, M, D, scale, dtype, stream
+    # q, k, v, o, lse, B, H, N, M, D, scale, dtype, stream: K1's fma, mma
+    # and d512 routes
     "emcid_flash_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
+    "emcid_flash_fwd_mma": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
+    "emcid_flash_fwd_d512": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
     # q, k, v, dout, lse, delta, dq, B, H, N, M, D, scale, dtype, stream
     "emcid_flash_dq": [_P] * 7 + [_I] * 5 + [_F, _I, _P],
     # q, k, v, dout, lse, delta, dk, dv, B, H, N, M, D, scale, dtype, stream
     "emcid_flash_dkv": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
-    # q, k, v, o, B, H, N, M, D, scale, dtype, stream
+    # q, k, v, o, B, H, N, M, D, scale, dtype, stream: K4's fma and mma
+    # routes
     "emcid_short_kv_fwd": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
+    "emcid_short_kv_fwd_mma": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
     # x, gamma, beta, y, stats, B, C, S, G, eps, act, dtype, pdtype, stream
     "emcid_gn_fwd": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _I, _P],
     # x, g, gamma, beta, stats, dx, dgamma, dbeta, B, C, S, G, act, dtype,
@@ -65,6 +76,9 @@ _SIGNATURES = {
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for routes in ROUTES.values():
+        for route in routes:
+            routes[route] = 0
 
 
 def _nvcc() -> str:
@@ -161,8 +175,9 @@ def check_cuda_inputs(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: inputs must be contiguous")
 
 
-def run(name: str, fn_name: str, *args) -> None:
-    """Call a C entry point, raise on a CUDA error, count the launch."""
+def run(name: str, fn_name: str, *args, route: Optional[str] = None) -> None:
+    """Call a C entry point, raise on a CUDA error, count the launch (and
+    its route, for the kernels listed in ``ROUTES``)."""
     handle = lib()
     err = getattr(handle, fn_name)(*args)
     if err:
@@ -170,6 +185,14 @@ def run(name: str, fn_name: str, *args) -> None:
         raise RuntimeError(f"{name}: launch failed with CUDA error {err} "
                            f"({msg})")
     LAUNCHES[name] += 1
+    if route is not None:
+        ROUTES[name][route] += 1
+
+
+def aligned16(*tensors: torch.Tensor) -> bool:
+    """Whether every tensor's data starts on a 16-byte boundary (the
+    tensor-core routes copy 16-byte pieces)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def stream_ptr(t: torch.Tensor) -> int:

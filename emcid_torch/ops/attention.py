@@ -9,7 +9,9 @@ Counterpart of ``emcid_tpu/ops/attention.py``.  All functions take
   this chunked recompute, not a kernel, exactly as in the JAX package
   (``attention.py:147-151``), which has no Pallas backward for it either.
 * ``short_kv_fwd`` — K4 (``emcid_torch/csrc/short_kv.cu``): single-pass
-  forward for M < 256 keys, all beside one query tile.
+  forward for M < 256 keys, all beside one query tile; ``short_kv_route``
+  picks its route (``mma``: bf16 at head dims 40 and 80 on the tensor
+  cores; ``fma``: the rest on float FMAs).
 * ``attention`` — below ``EMCID_TPU_FLASH_MIN_SEQ`` tokens (default 1024)
   the fused einsum/softmax short path; on CUDA tensors M >= 256 goes to the
   flash-v2 kernels (K1-K3) and M < 256 to K4; on the CPU to
@@ -77,6 +79,19 @@ def short_kv_fwd_plain(q, k, v, scale: float) -> torch.Tensor:
     return torch.einsum("bhnm,bmhd->bnhd", p, v.float()).to(q.dtype)
 
 
+SHORT_KV_ENTRY = {"mma": "emcid_short_kv_fwd_mma", "fma": "emcid_short_kv_fwd"}
+
+
+def short_kv_route(q, k, v, o) -> str:
+    """K4's route: ``"mma"`` for bf16 with 32 < D <= 80, D % 8 == 0 and
+    16-byte aligned tensors, else ``"fma"``."""
+    D = q.shape[-1]
+    if (q.dtype == torch.bfloat16 and 32 < D <= 80 and D % 8 == 0
+            and _build.aligned16(q, k, v, o)):
+        return "mma"
+    return "fma"
+
+
 def short_kv_fwd(q, k, v, scale: float) -> torch.Tensor:
     """K4 wrapper: the plain version on CPU tensors, the kernel on CUDA."""
     B, N, H, M, D = _dims(q, k, v)
@@ -87,10 +102,11 @@ def short_kv_fwd(q, k, v, scale: float) -> torch.Tensor:
                          f"got {M}")
     _build.check_cuda_inputs("short_kv_fwd", q, k, v)
     o = torch.empty_like(q)
-    _build.run("K4 short_kv_fwd", "emcid_short_kv_fwd",
+    route = short_kv_route(q, k, v, o)
+    _build.run("K4 short_kv_fwd", SHORT_KV_ENTRY[route],
                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                B, H, N, M, D, ctypes.c_float(scale), _build.dtype_code(q),
-               _build.stream_ptr(q))
+               _build.stream_ptr(q), route=route)
     return o
 
 

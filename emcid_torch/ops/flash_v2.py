@@ -8,9 +8,13 @@ kernels (``emcid_torch/csrc/flash_v2.cu``) replace the three Pallas kernels:
 * K3 ``flash_dkv``  — dV = P^T.dO and dK = scale * dS^T.Q;
 
 where dS = P * (dO.V^T - delta) and delta = rowsum(dO * O) (computed here
-in torch, as the JAX package does outside its kernels).  bf16 at head dims
-40 and 80 runs on the tensor cores; float32 and other head dims (the VAE's
-512) on float FMAs: the C entry points pick the route.
+in torch, as the JAX package does outside its kernels).  K1 has three
+routes, each its own C entry point, picked by ``fwd_route``: ``mma`` (bf16
+at the UNet's head dims 40 and 80, tensor cores with the scores in
+registers), ``d512`` (bf16 at the VAE's single 512-wide head, the head dim
+split across warps) and ``fma`` (float32 and every other head dim, float
+FMAs).  K2/K3 pick their route in C (bf16 at 40 and 80 on the tensor
+cores, the rest on float FMAs).
 
 Each wrapper takes (B, L, H, D) tensors.  On a CPU tensor it computes its
 kernel's plain PyTorch version below (the same math, materialized scores,
@@ -81,6 +85,23 @@ def _dims(q, k, v):
     return B, N, H, k.shape[1], D
 
 
+FWD_ENTRY = {"mma": "emcid_flash_fwd_mma", "d512": "emcid_flash_fwd_d512",
+             "fma": "emcid_flash_fwd"}
+
+
+def fwd_route(q, k, v, o) -> str:
+    """K1's route for these tensors: ``"mma"`` for bf16 with 32 < D <= 80
+    and D % 8 == 0, ``"d512"`` for bf16 with D = 512 (both copy 16-byte
+    pieces, so every tensor must start 16-byte aligned), else ``"fma"``."""
+    D = q.shape[-1]
+    if q.dtype == torch.bfloat16 and _build.aligned16(q, k, v, o):
+        if 32 < D <= 80 and D % 8 == 0:
+            return "mma"
+        if D == 512:
+            return "d512"
+    return "fma"
+
+
 def flash_fwd(q, k, v, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1: (out (B, N, H, D), lse (B, H, N) f32)."""
     B, N, H, M, D = _dims(q, k, v)
@@ -89,10 +110,11 @@ def flash_fwd(q, k, v, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     _build.check_cuda_inputs("flash_fwd", q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, N), device=q.device, dtype=torch.float32)
-    _build.run("K1 flash_v2_fwd", "emcid_flash_fwd",
+    route = fwd_route(q, k, v, o)
+    _build.run("K1 flash_v2_fwd", FWD_ENTRY[route],
                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                lse.data_ptr(), B, H, N, M, D, ctypes.c_float(scale),
-               _build.dtype_code(q), _build.stream_ptr(q))
+               _build.dtype_code(q), _build.stream_ptr(q), route=route)
     return o, lse
 
 

@@ -10,7 +10,8 @@ prompts, 50 Stage-1 steps, DPM++ at 10 steps, 384 px, synthetic-corpus
 covariances) three times: once to build the kernels and warm the allocator
 and cuDNN, once timed on the host clock, and once under ``torch.profiler``.
 Prints one JSON object: the phase times of the timed and the profiled run,
-the device time of each hand-written kernel and of the other kernels
+the device time of each hand-written kernel (and of each route of K1 and
+K4) and of the other kernels
 grouped by name, and the device's busy share of the timed run's wall time
 (busy = the sum of the device time of every kernel in the profiled run;
 they run one at a time on the one stream).  The norm knobs come from the
@@ -34,13 +35,15 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 
 # substrings of the demangled names of the kernels of emcid_torch/csrc
-# (they live in an anonymous namespace): the tensor-core and the float-FMA
-# kernel of each wrapper
+# (they live in an anonymous namespace): every route's kernel of each
+# wrapper
 OWN_KERNELS = {
-    "K1 flash_v2_fwd": ("namespace)::fwd_tc_kernel", "namespace)::fwd_kernel"),
+    "K1 flash_v2_fwd": ("namespace)::fwd_mma_kernel", "namespace)::fwd_d512_kernel",
+                        "namespace)::fwd_kernel"),
     "K2 flash_v2_dq": ("namespace)::dq_tc_kernel", "namespace)::dq_kernel"),
     "K3 flash_v2_dkv": ("namespace)::dkv_tc_kernel", "namespace)::dkv_kernel"),
-    "K4 short_kv_fwd": ("namespace)::short_kv_kernel",),
+    "K4 short_kv_fwd": ("namespace)::short_kv_mma_kernel",
+                        "namespace)::short_kv_kernel"),
     "K5f groupnorm_fwd": ("namespace)::gn_fwd_kernel",),
     "K5b groupnorm_bwd": ("namespace)::gn_bwd_kernel",),
     "K6f layernorm_fwd": ("namespace)::ln_fwd_kernel",),
@@ -54,6 +57,14 @@ STOCK = {
         "LayerNorm", "layer_norm", "ComputeInternalGradients",
         "ComputeBackwardFusedParams", "GammaBeta", "ComputeGradOutput"),
     "stock SiLU": ("silu",),
+}
+# the routes of K1 and K4, one kernel each
+ROUTE_KERNELS = {
+    "K1 mma": ("namespace)::fwd_mma_kernel",),
+    "K1 d512": ("namespace)::fwd_d512_kernel",),
+    "K1 fma": ("namespace)::fwd_kernel",),
+    "K4 mma": ("namespace)::short_kv_mma_kernel",),
+    "K4 fma": ("namespace)::short_kv_kernel",),
 }
 KNOBS = ("EMCID_TPU_FUSED_GN", "EMCID_TPU_FUSED_LN")
 
@@ -130,6 +141,7 @@ def main() -> int:
         device_busy_ms=busy_ms,
         device_idle_share=max(0.0, 1.0 - busy_ms / (timed_s * 1e3)),
         own_kernels=own, own_kernels_ms=own_ms,
+        own_kernel_routes=group(ROUTE_KERNELS),
         own_kernels_share_of_busy=own_ms / busy_ms if busy_ms else None,
         stock_kernels=group(STOCK),
         top_kernels=[dict(name=k[:120], ms=v[0], calls=v[1])

@@ -1,6 +1,7 @@
 """PyTorch port, ops: attention dispatch (CPU path), the plain versions of
-the four CUDA kernels, and the closed-form solve, each against the JAX
-package on the same numpy inputs.
+the four CUDA kernels, the route K1 and K4 take for a dtype and head dim,
+and the closed-form solve, each against the JAX package on the same numpy
+inputs.
 
 The CUDA kernels themselves run only on the card (``chip_smoke.py`` holds
 each against these plain versions there); on CPU tensors each wrapper
@@ -16,6 +17,7 @@ import torch
 
 from emcid_tpu.ops.attention import _flash_forward
 from emcid_tpu.ops.attention import attention as jax_attention
+from emcid_tpu.ops.flash_v2 import _fwd as jax_flash_v2_fwd
 from emcid_tpu.ops.flash_v2 import flash_attention_v2 as jax_flash_v2
 from emcid_tpu.ops.solve import solve_adj_k as jax_solve
 
@@ -25,8 +27,9 @@ from emcid_torch.ops.attention import (
     flash_attention,
     mha_chunked,
     short_kv_fwd,
+    short_kv_route,
 )
-from emcid_torch.ops.flash_v2 import flash_attention_v2
+from emcid_torch.ops.flash_v2 import flash_attention_v2, flash_fwd, fwd_route
 from emcid_torch.ops.solve import solve_adj_k, upd_matrix_match_shape
 
 
@@ -70,6 +73,7 @@ def test_mha_chunked_unaligned_matches_jax():
     (1, 256, 256, 2, 80),
     (2, 300, 300, 1, 40),   # N not a block multiple
     (1, 512, 77, 2, 40),    # padded + masked key block
+    (1, 256, 256, 1, 512),  # the VAE's single 512-wide head (d512 route)
 ])
 def test_flash_v2_plain_forward_matches_jax(shape):
     """K1's plain version against the Pallas kernel in interpret mode."""
@@ -115,6 +119,87 @@ def test_short_kv_plain_matches_jax_kernel(shape):
                                     interpret=True))
     got = short_kv_fwd(*_t(q, k, v), D ** -0.5).numpy()
     np.testing.assert_allclose(got, ref, atol=2e-5)
+
+
+# bf16 inputs on both sides (the same rounded values): the Pallas kernels
+# round P to bf16 before P.V where the plain versions keep it in f32, and
+# both round the output to bf16 (2^-9 relative), so they agree to about 1%
+# of the largest output value; 2e-2 of it is the bound.  The scores and the
+# lse are f32 products of the same bf16 values in both.
+BF16_TOL = 2e-2
+
+
+def _bf16(*xs):
+    """The same bf16 values as a jax and a torch array, for each input."""
+    out = []
+    for x in xs:
+        t = torch.from_numpy(x).to(torch.bfloat16)
+        out.append((jnp.asarray(t.float().numpy()).astype(jnp.bfloat16), t))
+    return out
+
+
+@pytest.mark.parametrize("kernel,shape", [
+    ("K1", (1, 256, 256, 2, 40)),   # the mma route's head dim
+    ("K1", (2, 300, 300, 1, 40)),   # ragged N and M
+    ("K4", (1, 256, 77, 2, 40)),    # the cross-attention shape
+    ("K4", (1, 300, 200, 2, 40)),   # M past one 80-key chunk
+])
+def test_plain_bf16_matches_pallas(kernel, shape):
+    """K1 and K4's plain versions on bf16 inputs against the Pallas kernels
+    in interpret mode on the same bf16 inputs."""
+    B, N, M, H, D = shape
+    (qj, qt), (kj, kt), (vj, vt) = _bf16(*_qkv(9, B, N, M, H, D))
+    if kernel == "K1":
+        ref, lse_ref = jax_flash_v2_fwd(qj, kj, vj, D ** -0.5, interpret=True)
+        got, lse = flash_fwd(qt, kt, vt, D ** -0.5)
+        lse_ref = np.asarray(lse_ref)[:, 0, :N].reshape(B, H, N)
+        np.testing.assert_allclose(lse.numpy(), lse_ref, atol=1e-4)
+    else:
+        ref = _flash_forward(qj, kj, vj, D ** -0.5, block_q=128,
+                             interpret=True)
+        got = short_kv_fwd(qt, kt, vt, D ** -0.5)
+    assert got.dtype == torch.bfloat16
+    ref = np.asarray(ref.astype(jnp.float32))
+    err = np.abs(got.float().numpy() - ref).max()
+    assert err <= BF16_TOL * np.abs(ref).max()
+
+
+def _route_inputs(dtype, D, misaligned=False):
+    n = 1 * 8 * 2 * D
+    base = torch.zeros(n + 1, dtype=dtype)
+    q = (base[1:] if misaligned else base[:n]).view(1, 8, 2, D)
+    k, v = torch.zeros(1, 8, 2, D, dtype=dtype), torch.zeros(1, 8, 2, D,
+                                                             dtype=dtype)
+    return q, k, v, torch.empty_like(k)
+
+
+@pytest.mark.parametrize("kernel,dtype,D,misaligned,route", [
+    ("K1", torch.bfloat16, 40, False, "mma"),
+    ("K1", torch.bfloat16, 80, False, "mma"),
+    ("K1", torch.bfloat16, 512, False, "d512"),
+    ("K1", torch.float32, 40, False, "fma"),
+    ("K1", torch.bfloat16, 16, False, "fma"),
+    ("K1", torch.bfloat16, 40, True, "fma"),   # not 16-byte aligned
+    ("K4", torch.bfloat16, 40, False, "mma"),
+    ("K4", torch.bfloat16, 80, False, "mma"),
+    ("K4", torch.float32, 40, False, "fma"),
+    ("K4", torch.bfloat16, 512, False, "fma"),
+])
+def test_kernel_routes(kernel, dtype, D, misaligned, route):
+    """The route K1 (``fwd_route``) and K4 (``short_kv_route``) take: the
+    tensor-core routes for bf16 at the UNet's head dims (and the VAE's
+    512-wide head for K1), the float-FMA kernels for the rest."""
+    pick = fwd_route if kernel == "K1" else short_kv_route
+    assert pick(*_route_inputs(dtype, D, misaligned)) == route
+
+
+def test_reset_launches_clears_routes():
+    _build.ROUTES["K1 flash_v2_fwd"]["mma"] = 3
+    _build.ROUTES["K4 short_kv_fwd"]["fma"] = 1
+    _build.reset_launches()
+    assert all(n == 0 for r in _build.ROUTES.values() for n in r.values())
+    assert set(_build.ROUTES["K1 flash_v2_fwd"]) == {"mma", "d512", "fma"}
+    assert set(_build.ROUTES["K4 short_kv_fwd"]) == {"mma", "fma"}
 
 
 def test_short_kv_backward_is_chunked_recompute():
