@@ -16,11 +16,11 @@ Phases, each printing one JSON line:
    (``bound_ms``);
 3. the main path: ``apply_emcid`` on the full-width SD-v1.4 pipeline
    (random weights from a seed) in bf16, 4 concepts in one block, with the
-   launch count of every kernel (and of each route of K1 and K4) during
+   launch count of every kernel (and of each route of K1-K4) during
    that run, the phase times, and checks of what comes out (finite z and
    deltas, only the fc2 weights of the edited layers changed, the on-card
    Stage-2 solve against the host float64 one, the tensor-core routes of
-   K1 and K4 taken and no float-FMA route);
+   K1-K4 taken and no float-FMA route);
 4. model checks: that pipeline's bf16 UNet at the Stage-1 shape and its
    bf16 VAE (decode and re-encode of a 48x48 latent) with attention
    through the kernels against the plain attention path; the UNet in f32
@@ -89,9 +89,10 @@ NORMS = ("K5f groupnorm_fwd", "K5b groupnorm_bwd", "K6f layernorm_fwd",
          "K6b layernorm_bwd")
 KNOBS = ("EMCID_TPU_FUSED_GN", "EMCID_TPU_FUSED_LN")
 # the routes a bf16 run of the SD-v1.4 paths must take: K1 on the tensor
-# cores at the UNet's heads (mma) and the VAE's (d512), K4 on the tensor
-# cores, and no float-FMA route of either
-BF16_ROUTES = {"K1 flash_v2_fwd": ("mma", "d512"), "K4 short_kv_fwd": ("mma",)}
+# cores at the UNet's heads (mma) and the VAE's (d512), K2, K3 and K4 on the
+# tensor cores, and no float-FMA route of any of them
+BF16_ROUTES = {"K1 flash_v2_fwd": ("mma", "d512"), "K2 flash_v2_dq": ("mma",),
+               "K3 flash_v2_dkv": ("mma",), "K4 short_kv_fwd": ("mma",)}
 
 
 def routes_ok(routes, expect=BF16_ROUTES) -> bool:
@@ -256,6 +257,9 @@ def phase_flash_fwd(torch, shapes, failures):
 
 
 def phase_flash_bwd(torch, shapes, failures):
+    """K2/K3 at (B, N, H, D) with N = M.  Every shape here is bf16 at a
+    head dim of the ``mma`` route or f32, so each must take ``mma`` (bf16)
+    or ``fma`` (f32)."""
     from emcid_torch.ops import flash_v2 as fv2
     import torch.nn.functional as F
 
@@ -269,6 +273,12 @@ def phase_flash_bwd(torch, shapes, failures):
         delta = fv2.row_delta(o, dout)
         dq = fv2.flash_dq(q, k, v, dout, lse, delta, s)
         dk, dv = fv2.flash_dkv(q, k, v, dout, lse, delta, s)
+        routes = (fv2.bwd_route(q, k, v, dout, dq),
+                  fv2.bwd_route(q, k, v, dout, dk, dv))
+        expect = "mma" if dtype == torch.bfloat16 else "fma"
+        if routes != (expect, expect):
+            failures.append(f"K2/K3 at {(B, N, H, D)} {dtype}: routes "
+                            f"{routes}, expected {expect}")
         dq_ref = fv2.flash_dq_plain(q, k, v, dout, lse, delta, s)
         dk_ref, dv_ref = fv2.flash_dkv_plain(q, k, v, dout, lse, delta, s)
         # through the autograd.Function against plain autograd of the
@@ -289,10 +299,11 @@ def phase_flash_bwd(torch, shapes, failures):
             res[label] = check(label, got, ref, dtype, shape, failures)
         common = dict(phase="kernel", shape=[B, N, H, D], dtype=str(dtype),
                       tolerance=TOL[str(dtype)])
-        k2 = dict(common, kernel="K2 flash_v2_dq", max_abs_err=res["dq"][0],
+        k2 = dict(common, kernel="K2 flash_v2_dq", route=routes[0],
+                  max_abs_err=res["dq"][0],
                   rel_err=res["dq"][1], autograd_rel_err=res["autograd_dq"][1],
                   ok=res["dq"][2] and res["autograd_dq"][2])
-        k3 = dict(common, kernel="K3 flash_v2_dkv",
+        k3 = dict(common, kernel="K3 flash_v2_dkv", route=routes[1],
                   max_abs_err=max(res["dk"][0], res["dv"][0]),
                   rel_err=max(res["dk"][1], res["dv"][1]),
                   autograd_rel_err=max(res["autograd_dk"][1],
@@ -327,6 +338,8 @@ def phase_flash_bwd(torch, shapes, failures):
                 ot, (qt, kt, vt), gt, retain_graph=True), 5)
             k2["library_ms"] = k3["library_ms"] = lib
             k2["library_note"] = k3["library_note"] = "SDPA backward (dq, dk, dv)"
+            k3["k2_plus_k3_over_library"] = (
+                k2["kernel_ms"] + k3["kernel_ms"]) / lib
         emit(k2)
         emit(k3)
         rows += [k2, k3]
@@ -570,10 +583,15 @@ def kernel_phases(torch, failures):
         ((24, 2304, 8, 40), bf), ((12, 2304, 1, 512), bf),
         ((4, 2304, 1, 512), bf), ((2, 4096, 1, 512), bf),
         ((24, 4096, 8, 40), bf), ((4, 1024, 8, 80), bf)], failures)
+    # K2/K3: ragged f32 (fma route) and bf16 (mma; N = M = 300 is not a
+    # multiple of 64) shapes; the level-0 Stage-1 shape; the 512-px Stage-1
+    # levels 0 and 1 (EMCID_TPU_TRAIN_RES=0)
     rows += phase_flash_bwd(torch, [((2, 300, 2, 40), f32),
                                     ((2, 300, 2, 80), f32),
                                     ((2, 300, 2, 40), bf), ((2, 300, 2, 80), bf),
-                                    ((12, 2304, 8, 40), bf)], failures)
+                                    ((12, 2304, 8, 40), bf),
+                                    ((12, 4096, 8, 40), bf),
+                                    ((12, 1024, 8, 80), bf)], failures)
     # K4: ragged f32 (fma) and bf16 (mma; M = 200 takes three key chunks
     # and the online rescale); the level-0 cross-attention; 512 px levels 0
     # and 1
@@ -776,7 +794,9 @@ def model_check_bf16(torch, comps, failures):
     latent, re-encode of the decoded image), attention through the kernels
     (K1 mma and d512, K4 mma; K2/K3 and K4's chunked backward) against the
     same modules with every attention on the plain einsum/softmax path
-    (``EMCID_TPU_FLASH_MIN_SEQ=10**9``); the norm knobs off."""
+    (``EMCID_TPU_FLASH_MIN_SEQ=10**9``); the norm knobs off.  The UNet's
+    run must take the tensor-core routes of K1 (mma), K2, K3 and K4, the
+    VAE's K1's d512 route."""
     from emcid_torch.ops import _build
 
     bf = torch.bfloat16
@@ -822,6 +842,8 @@ def model_check_bf16(torch, comps, failures):
                  for a in (eps_k, grad_k, dec_k, z_k))
     row["ok"] = (all(e <= BF16_MODEL_TOL for e in errs.values()) and finite
                  and routes_ok(unet_routes, {"K1 flash_v2_fwd": ("mma",),
+                                             "K2 flash_v2_dq": ("mma",),
+                                             "K3 flash_v2_dkv": ("mma",),
                                              "K4 short_kv_fwd": ("mma",)})
                  and vae_routes["K1 flash_v2_fwd"]["d512"] > 0)
     emit(row)

@@ -51,28 +51,44 @@
 //   stride D + 1, so a column walk across rows is free of bank conflicts,
 //   and the softmax row reductions run one warp per row with shuffles.
 //
-// K2/K3 pick their route here: bf16 with 32 < D <= 80 runs the products as
-// 16x16x16 WMMA fragments whose score tiles round-trip through shared
-// memory (the next redesign puts them on mma.cuh too); everything else on
-// float FMAs.  Every kernel reads each K/V (K1, K2) or Q/dO (K3) tile from
-// device memory once per block.
+// K2 and K3 have two routes each, one C entry point each; the wrapper
+// (bwd_route in emcid_torch/ops/flash_v2.py) picks one for both:
+//
+// * mma (emcid_flash_dq_mma, emcid_flash_dkv_mma): bf16 with 32 < D <= 80,
+//   D % 8 == 0.  Per score K2 does three products of depth D (S = Q.K^T,
+//   dP = dO.V^T, dQ += dS.K) and K3 four (S, dP, dV += P^T.dO,
+//   dK += dS^T.Q), and each one exponential: at D = 40 the tensor flops
+//   bound them (K2 0.124 ms, K3 0.165 ms at (12, 2304, 8, 40)), the
+//   exponentials just below (0.122 ms).  So, as in K1's mma route, nothing
+//   between the products leaves registers: S and dP come from the warp's
+//   A fragments (Q and dO in K2, K and V in K3; loaded once) against the
+//   streamed tile's rows, P = exp2(S * sl2 - lse2) (lse2 = lse * log2(e))
+//   and dS = P * (dP - delta) are formed in the C layout and, rounded to
+//   bf16 as the JAX kernels round them, are the A fragments of the next
+//   products.  K3 works on the transposed scores (key rows, query columns),
+//   so P^T and dS^T are already in the A layout of dV and dK.  See BwdMma
+//   below for the block shape.
+// * fma (emcid_flash_dq, emcid_flash_dkv): float32, and bf16 at any other
+//   head dim, on float FMAs out of shared memory, like K1's fma route.
+//
+// K2 and K3 stay two kernels, as in the JAX package: each block owns its
+// rows of dQ (K2) or of dK and dV (K3), so no sum crosses blocks, nothing
+// is added atomically, and every run gives the same gradients.  Every
+// kernel reads each K/V (K1, K2) or Q/dO (K3) tile from device memory once
+// per block.
 //
 // Tensors are (B, L, H, D) contiguous, bf16 or f32; lse and delta are
 // (B, H, N) f32, lse in natural-log units.  Accumulation is f32 throughout.
 // Each C entry point launches on the given stream, allocates nothing, and
 // returns cudaGetLastError().
 
-#include "common.cuh"  // cuda_bf16.h first: mma.h's bf16 fragments need it
+#include "common.cuh"
 #include "mma.cuh"
 
-#include <mma.h>
-
 #include <cstdint>
-#include <initializer_list>
 #include <type_traits>
 
 using namespace emcid;
-using namespace nvcuda;
 
 namespace {
 
@@ -315,290 +331,6 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// K2/K3 tensor-core path: bf16 inputs with 32 < D <= 80 and D % 8 == 0.
-// Four warps per block; each warp owns 16 rows of the block's 64-row tile
-// (query rows in dQ, key rows in dK/dV), so the row reductions need only
-// the warp.  Products are 16x16x16 bf16 WMMA fragments with f32
-// accumulators, out of bf16 tiles in shared memory whose head dim is
-// zero-padded to DP (a multiple of 16).  The streamed tiles (K/V, or Q/dO
-// with their row statistics) arrive by 16-byte cp.async copies in two
-// stages, so the next tile's copy overlaps this tile's products.  P and dS
-// are rounded to bf16 before their products with K, dO or Q; every sum is
-// f32.
-// ---------------------------------------------------------------------------
-
-constexpr int kTcTile = 64;  // query and key rows per tile
-constexpr int kTcThreads = 128;
-constexpr int kLdS = kTcTile + 4;  // f32 score tile row stride
-constexpr int kLdP = kTcTile + 8;  // bf16 probability tile row stride
-
-template <int DP>
-struct TcLayout {
-  static constexpr int kLdH = DP + 8;           // bf16 operand tile row stride
-  static constexpr int kLdO = DP + 4;           // f32 accumulator tile row stride
-  static constexpr int kHalf = kTcTile * kLdH;  // elements of one bf16 operand tile
-  static constexpr size_t kHalfTile = sizeof(bf16) * kHalf;
-  static constexpr size_t kScoreTile = sizeof(float) * kTcTile * kLdS;
-  static constexpr size_t kProbTile = sizeof(bf16) * kTcTile * kLdP;
-  static constexpr size_t kOutTile = sizeof(float) * kTcTile * kLdO;
-  static constexpr size_t kRows = sizeof(float) * kTcTile;
-  static_assert(kOutTile <= 2 * kScoreTile, "dQ/dK/dV epilogue reuses the score tiles");
-};
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// Start copying rows [r0, r0 + 64) of head (b, h) into a bf16 tile with row
-// stride ld; columns [D, DP) and rows at or past L are zero.
-template <int DP>
-__device__ __forceinline__ void tile_async(bf16* dst, const bf16* src, int b, int h, int r0,
-                                           int L, int H, int D, int ld) {
-  constexpr int kChunks = DP / 8;
-  const int real = D / 8;
-  for (int e = threadIdx.x; e < kTcTile * kChunks; e += blockDim.x) {
-    const int i = e / kChunks, c = e - i * kChunks, r = r0 + i;
-    const bool ok = r < L && c < real;
-    cp_async16(dst + i * ld + c * 8, ok ? src + (((long long)b * L + r) * H + h) * D + c * 8 : src,
-               ok);
-  }
-}
-
-// Start copying the row statistics (lse, delta) of query rows [q0, q0 + 64);
-// zeros past N.
-__device__ __forceinline__ void rows_async(float* dst, const float* src, int b, int h, int q0,
-                                           int H, int N) {
-  for (int i = threadIdx.x; i < kTcTile; i += blockDim.x) {
-    const int n = q0 + i;
-    cp_async4(dst + i, n < N ? src + ((long long)b * H + h) * N + n : src, n < N);
-  }
-}
-
-// acc[j] (16 x 16, j < 4) = A[16 rows, DP] . B[64 rows, DP]^T: the 16 x 64
-// product of this warp's rows of A with every row of B.
-template <int DP>
-__device__ __forceinline__ void rows_times_rows_t(FragC (&acc)[kTcTile / 16], const bf16* a,
-                                                  const bf16* b, int ld) {
-#pragma unroll
-  for (int j = 0; j < kTcTile / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < DP; kk += 16) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, a + kk, ld);
-#pragma unroll
-    for (int j = 0; j < kTcTile / 16; ++j) {
-      FragBCol fb;
-      wmma::load_matrix_sync(fb, b + j * 16 * ld + kk, ld);
-      wmma::mma_sync(acc[j], fa, fb, acc[j]);
-    }
-  }
-}
-
-// acc[n] (16 x 16, n < DP / 16) += P[16 rows, 64] . B[64 rows, DP].
-template <int DP>
-__device__ __forceinline__ void rows_times_tile(FragC (&acc)[DP / 16], const bf16* p,
-                                                const bf16* b, int ldb) {
-#pragma unroll
-  for (int kk = 0; kk < kTcTile; kk += 16) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, p + kk, kLdP);
-#pragma unroll
-    for (int n = 0; n < DP / 16; ++n) {
-      FragBRow fb;
-      wmma::load_matrix_sync(fb, b + kk * ldb + n * 16, ldb);
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
-  }
-}
-
-// This warp's 16 x 64 block of A.B^T into rows r0.. of a f32 tile.
-template <int DP>
-__device__ __forceinline__ void scores_to_smem(float* dst, const bf16* a, const bf16* b, int ld) {
-  FragC s[kTcTile / 16];
-  rows_times_rows_t<DP>(s, a, b, ld);
-#pragma unroll
-  for (int j = 0; j < kTcTile / 16; ++j)
-    wmma::store_matrix_sync(dst + j * 16, s[j], kLdS, wmma::mem_row_major);
-}
-
-// Write this warp's rows of an accumulator (16 x DP) to a (B, L, H, D) bf16
-// tensor, times `mul`, through the f32 tile `stage` (row stride ldo); rows
-// at or past L are not written.
-template <int DP>
-__device__ __forceinline__ void store_rows(bf16* dst, FragC (&acc)[DP / 16], float* stage,
-                                           int ldo, int b, int h, int row0, int L, int H, int D,
-                                           float mul) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int n = 0; n < DP / 16; ++n)
-    wmma::store_matrix_sync(stage + n * 16, acc[n], ldo, wmma::mem_row_major);
-  __syncwarp();
-  for (int i = 0; i < 16 && row0 + i < L; ++i)
-    for (int d = lane; d < D; d += 32)
-      dst[(((long long)b * L + row0 + i) * H + h) * D + d] =
-          __float2bfloat16(stage[i * ldo + d] * mul);
-  __syncwarp();
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kTcThreads)
-    dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 bf16* __restrict__ dq, int H, int N, int M, int D, float scale) {
-  using Lay = TcLayout<DP>;
-  constexpr int ldh = Lay::kLdH, ldo = Lay::kLdO, half = Lay::kHalf;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sdO = sQ + half;
-  bf16* sKV = sdO + half;                                   // 2 stages of (K, V)
-  float* sS = reinterpret_cast<float*>(sKV + 4 * half);     // Q.K^T
-  float* sdP = sS + kTcTile * kLdS;                         // dO.V^T
-  bf16* sdS = reinterpret_cast<bf16*>(sdP + kTcTile * kLdS);
-  float* sLse = reinterpret_cast<float*>(sdS + kTcTile * kLdP);
-  float* sDelta = sLse + kTcTile;
-  const int b = blockIdx.y / H, h = blockIdx.y % H, q0 = blockIdx.x * kTcTile;
-  const int lane = threadIdx.x % 32, r0 = (threadIdx.x / 32) * 16;
-  const int tiles = (M + kTcTile - 1) / kTcTile;
-
-  tile_async<DP>(sQ, q, b, h, q0, N, H, D, ldh);
-  tile_async<DP>(sdO, dout, b, h, q0, N, H, D, ldh);
-  rows_async(sLse, lse, b, h, q0, H, N);
-  rows_async(sDelta, delta, b, h, q0, H, N);
-  tile_async<DP>(sKV, k, b, h, 0, M, H, D, ldh);
-  tile_async<DP>(sKV + half, v, b, h, 0, M, H, D, ldh);
-  cp_async_commit();
-  FragC acc[DP / 16];
-#pragma unroll
-  for (int n = 0; n < DP / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-  for (int t = 0; t < tiles; ++t) {
-    const int k0 = t * kTcTile;
-    const bf16* sK = sKV + (t & 1) * 2 * half;
-    const bf16* sV = sK + half;
-    if (t + 1 < tiles) {
-      bf16* next = sKV + ((t + 1) & 1) * 2 * half;
-      tile_async<DP>(next, k, b, h, k0 + kTcTile, M, H, D, ldh);
-      tile_async<DP>(next + half, v, b, h, k0 + kTcTile, M, H, D, ldh);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    scores_to_smem<DP>(sS + r0 * kLdS, sQ + r0 * ldh, sK, ldh);
-    scores_to_smem<DP>(sdP + r0 * kLdS, sdO + r0 * ldh, sV, ldh);
-    __syncwarp();
-    for (int i = r0; i < r0 + 16; ++i) {
-      for (int c = lane; c < kTcTile; c += 32) {
-        float ds = 0.f;
-        if (k0 + c < M) {
-          const float p = __expf(sS[i * kLdS + c] * scale - sLse[i]);
-          ds = p * (sdP[i * kLdS + c] - sDelta[i]);
-        }
-        sdS[i * kLdP + c] = __float2bfloat16(ds);
-      }
-    }
-    __syncwarp();
-    rows_times_tile<DP>(acc, sdS + r0 * kLdP, sK, ldh);
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-  // the score tiles are free now: stage the output through them
-  store_rows<DP>(dq, acc, sS + r0 * ldo, ldo, b, h, q0 + r0, N, H, D, scale);
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kTcThreads)
-    dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                  const float* __restrict__ lse, const float* __restrict__ delta,
-                  bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int N, int M, int D,
-                  float scale) {
-  using Lay = TcLayout<DP>;
-  constexpr int ldh = Lay::kLdH, ldo = Lay::kLdO, half = Lay::kHalf;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + half;
-  bf16* sQdO = sV + half;                                     // 2 stages of (Q, dO)
-  float* sSt = reinterpret_cast<float*>(sQdO + 4 * half);     // K.Q^T (key rows)
-  float* sdPt = sSt + kTcTile * kLdS;                         // V.dO^T
-  bf16* sPt = reinterpret_cast<bf16*>(sdPt + kTcTile * kLdS);
-  bf16* sdSt = sPt + kTcTile * kLdP;
-  float* sRows = reinterpret_cast<float*>(sdSt + kTcTile * kLdP);  // 2 stages of (lse, delta)
-  const int b = blockIdx.y / H, h = blockIdx.y % H, j0 = blockIdx.x * kTcTile;
-  const int lane = threadIdx.x % 32, r0 = (threadIdx.x / 32) * 16;
-  const int tiles = (N + kTcTile - 1) / kTcTile;
-
-  tile_async<DP>(sK, k, b, h, j0, M, H, D, ldh);
-  tile_async<DP>(sV, v, b, h, j0, M, H, D, ldh);
-  tile_async<DP>(sQdO, q, b, h, 0, N, H, D, ldh);
-  tile_async<DP>(sQdO + half, dout, b, h, 0, N, H, D, ldh);
-  rows_async(sRows, lse, b, h, 0, H, N);
-  rows_async(sRows + kTcTile, delta, b, h, 0, H, N);
-  cp_async_commit();
-  FragC acc_k[DP / 16], acc_v[DP / 16];
-#pragma unroll
-  for (int n = 0; n < DP / 16; ++n) {
-    wmma::fill_fragment(acc_k[n], 0.f);
-    wmma::fill_fragment(acc_v[n], 0.f);
-  }
-  for (int t = 0; t < tiles; ++t) {
-    const int q0 = t * kTcTile;
-    const bf16* sQ = sQdO + (t & 1) * 2 * half;
-    const bf16* sdO = sQ + half;
-    const float* sLse = sRows + (t & 1) * 2 * kTcTile;
-    const float* sDelta = sLse + kTcTile;
-    if (t + 1 < tiles) {
-      bf16* next = sQdO + ((t + 1) & 1) * 2 * half;
-      float* next_rows = sRows + ((t + 1) & 1) * 2 * kTcTile;
-      tile_async<DP>(next, q, b, h, q0 + kTcTile, N, H, D, ldh);
-      tile_async<DP>(next + half, dout, b, h, q0 + kTcTile, N, H, D, ldh);
-      rows_async(next_rows, lse, b, h, q0 + kTcTile, H, N);
-      rows_async(next_rows + kTcTile, delta, b, h, q0 + kTcTile, H, N);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    scores_to_smem<DP>(sSt + r0 * kLdS, sK + r0 * ldh, sQ, ldh);
-    scores_to_smem<DP>(sdPt + r0 * kLdS, sV + r0 * ldh, sdO, ldh);
-    __syncwarp();
-    for (int jr = r0; jr < r0 + 16; ++jr) {
-      for (int c = lane; c < kTcTile; c += 32) {
-        float p = 0.f, ds = 0.f;
-        if (q0 + c < N) {
-          p = __expf(sSt[jr * kLdS + c] * scale - sLse[c]);
-          ds = p * (sdPt[jr * kLdS + c] - sDelta[c]);
-        }
-        sPt[jr * kLdP + c] = __float2bfloat16(p);
-        sdSt[jr * kLdP + c] = __float2bfloat16(ds);
-      }
-    }
-    __syncwarp();
-    rows_times_tile<DP>(acc_v, sPt + r0 * kLdP, sdO, ldh);
-    rows_times_tile<DP>(acc_k, sdSt + r0 * kLdP, sQ, ldh);
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-  // the score tiles are free now: stage the outputs through them
-  store_rows<DP>(dv, acc_v, sSt + r0 * ldo, ldo, b, h, j0 + r0, M, H, D, 1.f);
-  store_rows<DP>(dk, acc_k, sSt + r0 * ldo, ldo, b, h, j0 + r0, M, H, D, scale);
-}
-
-template <int DP>
-constexpr size_t dq_tc_smem() {
-  using L = TcLayout<DP>;
-  return 6 * L::kHalfTile + 2 * L::kScoreTile + L::kProbTile + 2 * L::kRows;
-}
-template <int DP>
-constexpr size_t dkv_tc_smem() {
-  using L = TcLayout<DP>;
-  return 6 * L::kHalfTile + 2 * L::kScoreTile + 2 * L::kProbTile + 4 * L::kRows;
-}
-
-// ---------------------------------------------------------------------------
 // K1, mma route (bf16, 32 < D <= 80, D % 8 == 0): 128 query rows per block,
 // K/V tiles of 64 keys.  At D = 40 four warps own 32 rows each and four
 // stages are in flight (70 KB); ptxas fits the warp's state (scores 64,
@@ -672,7 +404,7 @@ __global__ void __launch_bounds__(FwdMma<D>::kThreads, FwdMma<D>::kMinBlocks)
   finish_rows(st, row_lse);
   // only this warp read its rows of the Q tile: stage O there
   __syncwarp();
-  stage_rows(sQ + r0 * ld, st, ld);
+  stage_rows(sQ + r0 * ld, st.o, ld);
   __syncwarp();
   store_staged(o, sQ + r0 * ld, ld, 16 * MT, D, b, h, q0 + r0, 0, N, H, D);
   if (lane % 4 == 0) {
@@ -778,13 +510,13 @@ __global__ void __launch_bounds__(kBigWarps * 32, 1)
     const int valid = M - t * kBigBk;
     if (valid < kBigBk) mask_keys<1, NT>(s, valid);
     softmax_tile<1, NT, ND>(st, s, sl2, t == 0);
-    p_times_v<1, kBigBk, ND>(st, s, sV + c0, ld);
+    p_times_v<1, kBigBk, ND>(st.o, s, sV + c0, ld);
   }
   float row_lse[1][2];
   finish_rows(st, row_lse);
   // only this warp read its rows and half of the Q tile: stage O there
   __syncwarp();
-  stage_rows(sQ + r0 * ld + c0, st, ld);
+  stage_rows(sQ + r0 * ld + c0, st.o, ld);
   __syncwarp();
   store_staged(o, sQ + r0 * ld + c0, ld, 16, kBigHalf, b, h, q0 + r0, c0, N, H, kBigD);
   if (half == 0 && lane % 4 == 0) {
@@ -794,6 +526,283 @@ __global__ void __launch_bounds__(kBigWarps * 32, 1)
       if (n < N) lse[((long long)b * H + h) * N + n] = row_lse[0][hr];
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// K2/K3, mma route (bf16, 32 < D <= 80, D % 8 == 0).  A block of 4 warps
+// owns 16 * kMt rows per warp (query rows in K2, key rows in K3) and
+// streams the other side in tiles of 64 rows through a ring of cp.async
+// stages (K2: K and V; K3: Q, dO and their 64 lse and delta values), each
+// thread copying fixed 16-byte chunks (copy_rows, as in K1).  A warp's own
+// rows load once as A fragments (K2: Q and dO; K3: K and V); the scores of
+// kSub streamed rows at a time live in registers.
+//
+// What bounds it is the shared-memory port, not the tensor cores: every B
+// fragment of a streamed tile (for S and dP, then for the dS/P products)
+// comes through ldmatrix at 128 bytes a clock per SM.  With one m16 row
+// tile per warp, K3 at D = 40 moved ~80 clocks of ldmatrix per warp and 32
+// columns against ~40 clocks of tensor work.  So at D <= 48 each warp owns
+// two row tiles (kMt = 2), which halves the fragment traffic per flop, at
+// the cost of registers: K3 holds K, V 48, dK, dV 80 and S, dP 32 (16
+// columns) and runs two blocks per SM (8 warps, up to 255 registers);
+// that took K3 from 0.60 to 0.52 ms and K2 from 0.42 to 0.39 ms at (12,
+// 2304, 8, 40) over the best one-tile shapes (scripts/torch_bwd_shapes.py
+// times the alternatives).  Wider heads keep one row tile: K2 three blocks
+// per SM (168 registers) with two stages (shared memory), K3 two blocks
+// per SM (K, V, dK and dV take 120 registers at D = 80).  ptxas spills
+// nothing at these budgets.  The outputs leave through the warp's own rows
+// of its resident tiles in 16-byte stores.
+// ---------------------------------------------------------------------------
+
+// The block shape of K2 (DKV false) or K3 (DKV true) at head dim D.
+template <int D, bool DKV>
+struct BwdMma {
+  static constexpr bool kNarrow = D <= 48;
+  static constexpr int kMt = kNarrow ? 2 : 1;  // m16 row tiles per warp
+  static constexpr int kWarps = 4;
+  static constexpr int kThreads = kWarps * 32;
+  // resident blocks the registers must allow
+  static constexpr int kMinBlocks = kNarrow || DKV ? 2 : 3;
+  static constexpr int kStages = kNarrow || DKV ? 3 : 2;  // streamed tiles in flight
+  static constexpr int kRows = kWarps * 16 * kMt;         // rows a block owns
+  static constexpr int kBt = 64;                          // rows of a streamed tile
+  static constexpr int kSub = DKV && !kNarrow ? 32 : 16;  // score columns in registers at once
+  static constexpr int kKd = (D + 15) / 16;               // k16 steps of the head dim
+  static constexpr int kNd = D / 8;                       // n8 tiles of the head dim
+  static constexpr int kLd = (D + 15) / 16 * 16 + 8;      // shared-memory row stride
+  static constexpr int kTile = kBt * kLd;                 // elements of one streamed tile
+  // two own tiles (Q, dO or K, V), kStages pairs of streamed tiles and, in
+  // K3, the streamed rows' lse and delta
+  static constexpr size_t kSmem = sizeof(bf16) * (size_t)(2 * kRows * kLd + 2 * kStages * kTile) +
+                                  (DKV ? sizeof(float) * 2 * kStages * kBt : 0);
+};
+template <int D>
+using DqMma = BwdMma<D, false>;
+template <int D>
+using DkvMma = BwdMma<D, true>;
+
+// dQ += dS.K over kSub keys of a K/V tile (sK, sV at those keys): S and dP
+// from the warp's Q and dO fragments (MT row tiles), P = exp2(S * sl2 -
+// lse2) with keys at or past `valid` at zero, dS = P * (dP - delta),
+// rounded to bf16 in p_times_v.  lse2/delta[mt]: the thread's rows g and
+// g + 8 of row tile mt.
+template <int D, int MT = DqMma<D>::kMt>
+__device__ __forceinline__ void dq_sub(float (&acc)[MT][DqMma<D>::kNd][4],
+                                       const uint32_t (&qf)[MT][DqMma<D>::kKd][4],
+                                       const uint32_t (&dof)[MT][DqMma<D>::kKd][4],
+                                       const bf16* sK, const bf16* sV, int ld, int valid,
+                                       float sl2, const float (&lse2)[MT][2],
+                                       const float (&delta)[MT][2]) {
+  constexpr int SUB = DqMma<D>::kSub, NT = SUB / 8;
+  float s[MT][NT][4], dp[MT][NT][4];
+  scores<MT, D, SUB>(s, qf, sK, ld);
+  scores<MT, D, SUB>(dp, dof, sV, ld);
+  if (valid < SUB) mask_keys<MT, NT>(s, valid);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float p = exp2_approx(fmaf(s[mt][n][r], sl2, -lse2[mt][r / 2]));
+        dp[mt][n][r] = p * (dp[mt][n][r] - delta[mt][r / 2]);
+      }
+  p_times_v<MT, SUB, D / 8>(acc, dp, sK, ld);
+}
+
+// dV += P^T.dO and dK += dS^T.Q (dK unscaled) over kSub query rows of a
+// Q/dO tile (sQ, sdO and their lse/delta at those rows): S^T and dP^T from
+// the warp's K and V fragments (MT row tiles of keys); a thread's columns
+// are 8n + 2t and 8n + 2t + 1, whose lse and delta it reads from shared
+// memory; columns at or past `valid` (query rows past N, whose lse reads
+// zero) get P = 0.
+template <int D, int MT = DkvMma<D>::kMt>
+__device__ __forceinline__ void dkv_sub(float (&dk)[MT][DkvMma<D>::kNd][4],
+                                        float (&dv)[MT][DkvMma<D>::kNd][4],
+                                        const uint32_t (&kf)[MT][DkvMma<D>::kKd][4],
+                                        const uint32_t (&vf)[MT][DkvMma<D>::kKd][4],
+                                        const bf16* sQ, const bf16* sdO, const float* sLse,
+                                        const float* sDelta, int ld, int valid, float sl2) {
+  constexpr int SUB = DkvMma<D>::kSub, NT = SUB / 8;
+  float st[MT][NT][4], dpt[MT][NT][4];
+  scores<MT, D, SUB>(st, kf, sQ, ld);
+  scores<MT, D, SUB>(dpt, vf, sdO, ld);
+  if (valid < SUB) mask_keys<MT, NT>(st, valid);
+  const int c = 2 * (threadIdx.x % 4);
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const float2 l = *reinterpret_cast<const float2*>(sLse + n * 8 + c);
+    const float2 d = *reinterpret_cast<const float2*>(sDelta + n * 8 + c);
+    const float l2[2] = {l.x * kLog2e, l.y * kLog2e}, dl[2] = {d.x, d.y};
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float p = exp2_approx(fmaf(st[mt][n][r], sl2, -l2[r & 1]));
+        st[mt][n][r] = p;
+        dpt[mt][n][r] = p * (dpt[mt][n][r] - dl[r & 1]);
+      }
+  }
+  p_times_v<MT, SUB, D / 8>(dv, st, sdO, ld);
+  p_times_v<MT, SUB, D / 8>(dk, dpt, sQ, ld);
+}
+
+template <int D>
+__global__ void __launch_bounds__(DqMma<D>::kThreads, DqMma<D>::kMinBlocks)
+    dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                  const float* __restrict__ lse, const float* __restrict__ delta,
+                  bf16* __restrict__ dq, int H, int N, int M, float scale) {
+  using C = DqMma<D>;
+  constexpr int ld = C::kLd, BT = C::kBt, S = C::kStages, tile = C::kTile, T = C::kThreads;
+  constexpr int MT = C::kMt;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // kRows x ld; dQ is staged here at the end
+  bf16* sdO = sQ + C::kRows * ld;                // kRows x ld
+  bf16* sKV = sdO + C::kRows * ld;               // S stages of (K, V)
+  const int b = blockIdx.y / H, h = blockIdx.y % H, q0 = blockIdx.x * C::kRows;
+  const int lane = threadIdx.x % 32, r0 = (threadIdx.x / 32) * 16 * MT;
+  const int tiles = (M + BT - 1) / BT, HD = H * D;
+  const float sl2 = scale * kLog2e;
+  const bf16* k0 = head_row(k, b, 0, h, M, H, D);
+  const bf16* v0 = head_row(v, b, 0, h, M, H, D);
+  // start copying K/V tile t into its stage; one commit group per tile,
+  // empty past the last, so the count of groups in flight stays fixed
+  auto fetch = [&](int t) {
+    if (t < tiles) {
+      bf16* dst = sKV + (t % S) * 2 * tile;
+      const long long off = (long long)t * BT * HD;
+      copy_rows<BT, D, T>(dst, ld, k0 + off, HD, M - t * BT);
+      copy_rows<BT, D, T>(dst + tile, ld, v0 + off, HD, M - t * BT);
+    }
+    cp_async_commit();
+  };
+
+  copy_rows<C::kRows, D, T>(sQ, ld, head_row(q, b, q0, h, N, H, D), HD, N - q0);
+  copy_rows<C::kRows, D, T>(sdO, ld, head_row(dout, b, q0, h, N, H, D), HD, N - q0);
+#pragma unroll
+  for (int t = 0; t < S - 1; ++t) fetch(t);  // Q and dO join tile 0's group
+  float lse2[MT][2], dl[MT][2];  // rows g and g + 8 of each row tile; zero past N
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int n = q0 + r0 + mt * 16 + lane / 4 + 8 * hr;
+      const long long i = ((long long)b * H + h) * N + n;
+      lse2[mt][hr] = n < N ? lse[i] * kLog2e : 0.f;
+      dl[mt][hr] = n < N ? delta[i] : 0.f;
+    }
+  uint32_t qf[MT][C::kKd][4], dof[MT][C::kKd][4];
+  float acc[MT][C::kNd][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int d = 0; d < C::kNd; ++d)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mt][d][r] = 0.f;
+  // tile t: wait for it, hand tile t - 1's stage to tile t + S - 1, add its
+  // keys' share of dQ; the first tile also loads Q's and dO's fragments
+  auto step = [&](int t, auto first) {
+    cp_async_wait<S - 2>();
+    __syncthreads();  // tile t has landed; every warp is done with tile t - 1
+    if constexpr (decltype(first)::value) {
+      load_q(qf, sQ + r0 * ld, ld);
+      load_q(dof, sdO + r0 * ld, ld);
+    }
+    fetch(t + S - 1);
+    const bf16* sK = sKV + (t % S) * 2 * tile;
+#pragma unroll
+    for (int c = 0; c < BT; c += C::kSub)
+      dq_sub<D>(acc, qf, dof, sK + c * ld, sK + tile + c * ld, ld, M - t * BT - c, sl2, lse2, dl);
+  };
+  step(0, std::true_type{});
+  for (int t = 1; t < tiles; ++t) step(t, std::false_type{});
+  cp_async_wait<0>();  // no copy is left in flight at exit
+  // only this warp read its rows of the Q tile: stage dQ there
+  __syncwarp();
+  stage_rows(sQ + r0 * ld, acc, ld, scale);
+  __syncwarp();
+  store_staged(dq, sQ + r0 * ld, ld, 16 * MT, D, b, h, q0 + r0, 0, N, H, D);
+}
+
+template <int D>
+__global__ void __launch_bounds__(DkvMma<D>::kThreads, DkvMma<D>::kMinBlocks)
+    dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int N, int M,
+                   float scale) {
+  using C = DkvMma<D>;
+  constexpr int ld = C::kLd, BT = C::kBt, S = C::kStages, tile = C::kTile, T = C::kThreads;
+  constexpr int MT = C::kMt;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);  // kRows x ld; dK is staged here at the end
+  bf16* sV = sK + C::kRows * ld;                 // kRows x ld; dV is staged here at the end
+  bf16* sQdO = sV + C::kRows * ld;               // S stages of (Q, dO)
+  float* sRows = reinterpret_cast<float*>(sQdO + 2 * S * tile);  // S stages of (lse, delta)
+  const int b = blockIdx.y / H, h = blockIdx.y % H, j0 = blockIdx.x * C::kRows;
+  const int r0 = (threadIdx.x / 32) * 16 * MT;
+  const int tiles = (N + BT - 1) / BT, HD = H * D;
+  const float sl2 = scale * kLog2e;
+  const bf16* qh = head_row(q, b, 0, h, N, H, D);
+  const bf16* doh = head_row(dout, b, 0, h, N, H, D);
+  const float* lseh = lse + ((long long)b * H + h) * N;
+  const float* deltah = delta + ((long long)b * H + h) * N;
+  // start copying Q/dO tile t and its rows' lse and delta into its stage
+  auto fetch = [&](int t) {
+    if (t < tiles) {
+      bf16* dst = sQdO + (t % S) * 2 * tile;
+      float* rows = sRows + (t % S) * 2 * BT;
+      const long long off = (long long)t * BT * HD;
+      const int left = N - t * BT;
+      copy_rows<BT, D, T>(dst, ld, qh + off, HD, left);
+      copy_rows<BT, D, T>(dst + tile, ld, doh + off, HD, left);
+      copy_floats<BT, T>(rows, lseh + t * BT, left);
+      copy_floats<BT, T>(rows + BT, deltah + t * BT, left);
+    }
+    cp_async_commit();
+  };
+
+  copy_rows<C::kRows, D, T>(sK, ld, head_row(k, b, j0, h, M, H, D), HD, M - j0);
+  copy_rows<C::kRows, D, T>(sV, ld, head_row(v, b, j0, h, M, H, D), HD, M - j0);
+#pragma unroll
+  for (int t = 0; t < S - 1; ++t) fetch(t);  // K and V join tile 0's group
+  uint32_t kf[MT][C::kKd][4], vf[MT][C::kKd][4];
+  float dk_acc[MT][C::kNd][4], dv_acc[MT][C::kNd][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int d = 0; d < C::kNd; ++d)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        dk_acc[mt][d][r] = 0.f;
+        dv_acc[mt][d][r] = 0.f;
+      }
+  auto step = [&](int t, auto first) {
+    cp_async_wait<S - 2>();
+    __syncthreads();  // tile t has landed; every warp is done with tile t - 1
+    if constexpr (decltype(first)::value) {
+      load_q(kf, sK + r0 * ld, ld);
+      load_q(vf, sV + r0 * ld, ld);
+    }
+    fetch(t + S - 1);
+    const bf16* sQ = sQdO + (t % S) * 2 * tile;
+    const float* sLse = sRows + (t % S) * 2 * BT;
+#pragma unroll
+    for (int c = 0; c < BT; c += C::kSub)
+      dkv_sub<D>(dk_acc, dv_acc, kf, vf, sQ + c * ld, sQ + tile + c * ld, sLse + c,
+                 sLse + BT + c, ld, N - t * BT - c, sl2);
+  };
+  step(0, std::true_type{});
+  for (int t = 1; t < tiles; ++t) step(t, std::false_type{});
+  cp_async_wait<0>();
+  // only this warp read its rows of the K and V tiles: stage dK and dV there
+  __syncwarp();
+  stage_rows(sK + r0 * ld, dk_acc, ld, scale);
+  stage_rows(sV + r0 * ld, dv_acc, ld);
+  __syncwarp();
+  store_staged(dk, sK + r0 * ld, ld, 16 * MT, D, b, h, j0 + r0, 0, M, H, D);
+  store_staged(dv, sV + r0 * ld, ld, 16 * MT, D, b, h, j0 + r0, 0, M, H, D);
 }
 
 template <typename Kern, typename... Args>
@@ -807,11 +816,6 @@ int launch(Kern kern, dim3 grid, int threads, size_t smem, void* stream, Args...
   return (int)cudaGetLastError();
 }
 
-// The K2/K3 tensor-core path's padded head dim, or 0 where it does not apply.
-int tc_dp(int D, std::initializer_list<const void*> tensors) {
-  return mma_route_ok(D, tensors) ? (D + 15) / 16 * 16 : 0;
-}
-
 template <int D>
 int fwd_mma_launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
                    int N, int M, float scale, void* stream) {
@@ -821,34 +825,27 @@ int fwd_mma_launch(const void* q, const void* k, const void* v, void* o, void* l
                 (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, H, N, M, scale * kLog2e);
 }
 
-template <int DP>
-int dq_tc_launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                 const void* delta, void* dq, int B, int H, int N, int M, int D, float scale,
-                 void* stream) {
-  dim3 grid((N + kTcTile - 1) / kTcTile, B * H);
-  return launch(dq_tc_kernel<DP>, grid, kTcThreads, dq_tc_smem<DP>(), stream, (const bf16*)q,
+template <int D>
+int dq_mma_launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                  const void* delta, void* dq, int B, int H, int N, int M, float scale,
+                  void* stream) {
+  using C = DqMma<D>;
+  dim3 grid((N + C::kRows - 1) / C::kRows, B * H);
+  return launch(dq_mma_kernel<D>, grid, C::kThreads, C::kSmem, stream, (const bf16*)q,
                 (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
-                (const float*)delta, (bf16*)dq, H, N, M, D, scale);
+                (const float*)delta, (bf16*)dq, H, N, M, scale);
 }
 
-template <int DP>
-int dkv_tc_launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                  const void* delta, void* dk, void* dv, int B, int H, int N, int M, int D,
-                  float scale, void* stream) {
-  dim3 grid((M + kTcTile - 1) / kTcTile, B * H);
-  return launch(dkv_tc_kernel<DP>, grid, kTcThreads, dkv_tc_smem<DP>(), stream, (const bf16*)q,
+template <int D>
+int dkv_mma_launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                   const void* delta, void* dk, void* dv, int B, int H, int N, int M, float scale,
+                   void* stream) {
+  using C = DkvMma<D>;
+  dim3 grid((M + C::kRows - 1) / C::kRows, B * H);
+  return launch(dkv_mma_kernel<D>, grid, C::kThreads, C::kSmem, stream, (const bf16*)q,
                 (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
-                (const float*)delta, (bf16*)dk, (bf16*)dv, H, N, M, D, scale);
+                (const float*)delta, (bf16*)dk, (bf16*)dv, H, N, M, scale);
 }
-
-// Calls LAUNCH<DP> with the padded head dims the tensor-core path is built for.
-#define EMCID_TC_DISPATCH(dp, LAUNCH, ...)                     \
-  switch (dp) {                                                \
-    case 48: return LAUNCH<48>(__VA_ARGS__);                   \
-    case 64: return LAUNCH<64>(__VA_ARGS__);                   \
-    case 80: return LAUNCH<80>(__VA_ARGS__);                   \
-    default: return (int)cudaErrorInvalidValue;                \
-  }
 
 template <typename T>
 int fwd_launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
@@ -917,16 +914,19 @@ extern "C" int emcid_flash_fwd_d512(const void* q, const void* k, const void* v,
                 (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, H, N, M, scale * kLog2e);
 }
 
+// K2's and K3's two routes each (bwd_route in emcid_torch/ops/flash_v2.py),
+// one C entry point per route and kernel; the two of a kernel share one
+// signature and the forward's conventions.
+
+// fma: the float-FMA kernels, float32 or bf16, any head dim.
 extern "C" int emcid_flash_dq(const void* q, const void* k, const void* v, const void* dout,
                               const void* lse, const void* delta, void* dq, int B, int H, int N,
                               int M, int D, float scale, int dtype, void* stream) {
   if (dtype == 0)
     return dq_launch<float>(q, k, v, dout, lse, delta, dq, B, H, N, M, D, scale, stream);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (const int dp = tc_dp(D, {q, k, v, dout, dq}))
-    EMCID_TC_DISPATCH(dp, dq_tc_launch, q, k, v, dout, lse, delta, dq, B, H, N, M, D, scale,
-                      stream)
-  return dq_launch<bf16>(q, k, v, dout, lse, delta, dq, B, H, N, M, D, scale, stream);
+  if (dtype == 1)
+    return dq_launch<bf16>(q, k, v, dout, lse, delta, dq, B, H, N, M, D, scale, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int emcid_flash_dkv(const void* q, const void* k, const void* v, const void* dout,
@@ -935,9 +935,26 @@ extern "C" int emcid_flash_dkv(const void* q, const void* k, const void* v, cons
                                void* stream) {
   if (dtype == 0)
     return dkv_launch<float>(q, k, v, dout, lse, delta, dk, dv, B, H, N, M, D, scale, stream);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (const int dp = tc_dp(D, {q, k, v, dout, dk, dv}))
-    EMCID_TC_DISPATCH(dp, dkv_tc_launch, q, k, v, dout, lse, delta, dk, dv, B, H, N, M, D,
-                      scale, stream)
-  return dkv_launch<bf16>(q, k, v, dout, lse, delta, dk, dv, B, H, N, M, D, scale, stream);
+  if (dtype == 1)
+    return dkv_launch<bf16>(q, k, v, dout, lse, delta, dk, dv, B, H, N, M, D, scale, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// mma: bf16, 32 < D <= 80, D % 8 == 0, 16-byte aligned tensors.
+extern "C" int emcid_flash_dq_mma(const void* q, const void* k, const void* v, const void* dout,
+                                  const void* lse, const void* delta, void* dq, int B, int H,
+                                  int N, int M, int D, float scale, int dtype, void* stream) {
+  if (dtype != 1 || N <= 0 || M <= 0 || !mma_route_ok(D, {q, k, v, dout, dq}))
+    return (int)cudaErrorInvalidValue;
+  EMCID_MMA_DISPATCH(D, dq_mma_launch, q, k, v, dout, lse, delta, dq, B, H, N, M, scale, stream)
+}
+
+extern "C" int emcid_flash_dkv_mma(const void* q, const void* k, const void* v, const void* dout,
+                                   const void* lse, const void* delta, void* dk, void* dv, int B,
+                                   int H, int N, int M, int D, float scale, int dtype,
+                                   void* stream) {
+  if (dtype != 1 || N <= 0 || M <= 0 || !mma_route_ok(D, {q, k, v, dout, dk, dv}))
+    return (int)cudaErrorInvalidValue;
+  EMCID_MMA_DISPATCH(D, dkv_mma_launch, q, k, v, dout, lse, delta, dk, dv, B, H, N, M, scale,
+                     stream)
 }

@@ -1,5 +1,6 @@
 // Register-fragment building blocks of the tensor-core attention kernels
-// (K1's mma and d512 routes in flash_v2.cu, K4's mma route in short_kv.cu).
+// (K1's mma and d512 routes and K2/K3's mma routes in flash_v2.cu, K4's mma
+// route in short_kv.cu).
 //
 // Products are mma.sync.m16n8k16 (bf16 in, f32 accumulators), written in
 // inline PTX, with operands brought from shared memory by ldmatrix.  The
@@ -81,6 +82,16 @@ __device__ __forceinline__ void copy_rows(bf16* dst, int ld, const bf16* src, in
       const bool ok = r < left;
       cp_async16(dst + r * ld + c, src + (ok ? r * HD + c : 0), ok);
     }
+  }
+}
+
+// Start copying R consecutive floats (one 4-byte cp.async each); those at
+// or past `left` are zero-filled.
+template <int R, int T>
+__device__ __forceinline__ void copy_floats(float* dst, const float* src, int left) {
+  for (int i = threadIdx.x; i < R; i += T) {
+    const bool ok = i < left;
+    cp_async4(dst + i, src + (ok ? i : 0), ok);
   }
 }
 
@@ -341,9 +352,11 @@ __device__ __forceinline__ void softmax_tile(RowState<MT, ND>& st, float (&s)[MT
 
 // O += P.V: p holds the tile's probabilities (NK keys as NK / 8 n8 tiles,
 // rounded to bf16 here), sV the keys' rows of V from the warp's first
-// output column (stride ld); ND n8 output tiles.
+// output column (stride ld); ND n8 output tiles in o.  The backward uses it
+// for every product whose depth is the score axis: dQ += dS.K, dV += P^T.dO
+// and dK += dS^T.Q.
 template <int MT, int NK, int ND>
-__device__ __forceinline__ void p_times_v(RowState<MT, ND>& st, const float (&p)[MT][NK / 8][4],
+__device__ __forceinline__ void p_times_v(float (&o)[MT][ND][4], const float (&p)[MT][NK / 8][4],
                                           const bf16* sV, int ld) {
 #pragma unroll
   for (int j = 0; j < NK / 16; ++j) {
@@ -357,15 +370,15 @@ __device__ __forceinline__ void p_times_v(RowState<MT, ND>& st, const float (&p)
       load_b_cols(b, vj + d * 8, ld);
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
-        mma_bf16(st.o[mt][d], a[mt], b[0], b[1]);
-        mma_bf16(st.o[mt][d + 1], a[mt], b[2], b[3]);
+        mma_bf16(o[mt][d], a[mt], b[0], b[1]);
+        mma_bf16(o[mt][d + 1], a[mt], b[2], b[3]);
       }
     }
     if (ND % 2) {
       uint32_t b[2];
       load_b_cols8(b, vj + (ND - 1) * 8, ld);
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) mma_bf16(st.o[mt][ND - 1], a[mt], b[0], b[1]);
+      for (int mt = 0; mt < MT; ++mt) mma_bf16(o[mt][ND - 1], a[mt], b[0], b[1]);
     }
   }
 }
@@ -381,7 +394,7 @@ __device__ __forceinline__ void attend_tile(RowState<MT, D / 8>& st,
   scores<MT, D, NK>(s, qf, sK, ld);
   if (valid < NK) mask_keys<MT, NK / 8>(s, valid);
   softmax_tile<MT, NK / 8, D / 8>(st, s, sl2, first);
-  p_times_v<MT, NK, D / 8>(st, s, sV, ld);
+  p_times_v<MT, NK, D / 8>(st.o, s, sV, ld);
 }
 
 // The epilogue: sum l over the quad, O /= l.  lse[mt][hr] receives the
@@ -403,10 +416,12 @@ __device__ __forceinline__ void finish_rows(RowState<MT, ND>& st, float (&lse)[M
     }
 }
 
-// Write the warp's O (MT x 16 rows, ND n8 tiles) as bf16 into a tile with
-// row stride ld (the warp's own rows of a staging tile).
+// Write a warp's accumulator o (MT x 16 rows, ND n8 tiles) times `mul` as
+// bf16 into a tile with row stride ld (the warp's own rows of a staging
+// tile).
 template <int MT, int ND>
-__device__ __forceinline__ void stage_rows(bf16* tile, const RowState<MT, ND>& st, int ld) {
+__device__ __forceinline__ void stage_rows(bf16* tile, const float (&o)[MT][ND][4], int ld,
+                                           float mul = 1.f) {
   const int lane = threadIdx.x % 32, g = lane / 4, c = 2 * (lane % 4);
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
@@ -416,7 +431,7 @@ __device__ __forceinline__ void stage_rows(bf16* tile, const RowState<MT, ND>& s
 #pragma unroll
       for (int d = 0; d < ND; ++d)
         *reinterpret_cast<uint32_t*>(row + d * 8) =
-            pack_bf16(st.o[mt][d][2 * hr], st.o[mt][d][2 * hr + 1]);
+            pack_bf16(o[mt][d][2 * hr] * mul, o[mt][d][2 * hr + 1] * mul);
     }
 }
 

@@ -164,7 +164,7 @@ __global__ void __launch_bounds__(kShortWarps * 32)
   finish_rows(st, row_lse);
   // only this warp read its rows of the Q tile: stage O there
   __syncwarp();
-  stage_rows(sQ + r0 * ld, st, ld);
+  stage_rows(sQ + r0 * ld, st.o, ld);
   __syncwarp();
   store_staged(o, sQ + r0 * ld, ld, 16, D, b, h, q0 + r0, 0, N, H, D);
 }

@@ -9,7 +9,7 @@ Nothing is built at import: the first kernel launch builds.
 
 Every wrapper that launches a kernel adds one to its entry in ``LAUNCHES``
 right after the launch, so a run can show which kernels it went through.
-K1 and K4 have several routes (one C entry point each, picked in Python);
+K1-K4 have several routes (one C entry point each, picked in Python);
 their launches are also counted per route in ``ROUTES``.
 """
 
@@ -37,6 +37,8 @@ KERNELS = ("K1 flash_v2_fwd", "K2 flash_v2_dq", "K3 flash_v2_dkv",
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 ROUTES: Dict[str, Dict[str, int]] = {
     "K1 flash_v2_fwd": {"mma": 0, "d512": 0, "fma": 0},
+    "K2 flash_v2_dq": {"mma": 0, "fma": 0},
+    "K3 flash_v2_dkv": {"mma": 0, "fma": 0},
     "K4 short_kv_fwd": {"mma": 0, "fma": 0},
 }
 
@@ -50,10 +52,14 @@ _SIGNATURES = {
     "emcid_flash_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
     "emcid_flash_fwd_mma": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
     "emcid_flash_fwd_d512": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
-    # q, k, v, dout, lse, delta, dq, B, H, N, M, D, scale, dtype, stream
+    # q, k, v, dout, lse, delta, dq, B, H, N, M, D, scale, dtype, stream:
+    # K2's fma and mma routes
     "emcid_flash_dq": [_P] * 7 + [_I] * 5 + [_F, _I, _P],
-    # q, k, v, dout, lse, delta, dk, dv, B, H, N, M, D, scale, dtype, stream
+    "emcid_flash_dq_mma": [_P] * 7 + [_I] * 5 + [_F, _I, _P],
+    # q, k, v, dout, lse, delta, dk, dv, B, H, N, M, D, scale, dtype,
+    # stream: K3's fma and mma routes
     "emcid_flash_dkv": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
+    "emcid_flash_dkv_mma": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
     # q, k, v, o, B, H, N, M, D, scale, dtype, stream: K4's fma and mma
     # routes
     "emcid_short_kv_fwd": [_P] * 4 + [_I] * 5 + [_F, _I, _P],

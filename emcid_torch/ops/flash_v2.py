@@ -13,8 +13,10 @@ routes, each its own C entry point, picked by ``fwd_route``: ``mma`` (bf16
 at the UNet's head dims 40 and 80, tensor cores with the scores in
 registers), ``d512`` (bf16 at the VAE's single 512-wide head, the head dim
 split across warps) and ``fma`` (float32 and every other head dim, float
-FMAs).  K2/K3 pick their route in C (bf16 at 40 and 80 on the tensor
-cores, the rest on float FMAs).
+FMAs).  K2 and K3 have two routes each, picked together by ``bwd_route``:
+``mma`` (bf16 at the UNet's head dims, tensor cores with S, P, dP and dS in
+registers) and ``fma`` (the rest, float FMAs).  Every route is its own C
+entry point, and ``_build.ROUTES`` counts the launches of each.
 
 Each wrapper takes (B, L, H, D) tensors.  On a CPU tensor it computes its
 kernel's plain PyTorch version below (the same math, materialized scores,
@@ -89,17 +91,35 @@ FWD_ENTRY = {"mma": "emcid_flash_fwd_mma", "d512": "emcid_flash_fwd_d512",
              "fma": "emcid_flash_fwd"}
 
 
-def fwd_route(q, k, v, o) -> str:
-    """K1's route for these tensors: ``"mma"`` for bf16 with 32 < D <= 80
-    and D % 8 == 0, ``"d512"`` for bf16 with D = 512 (both copy 16-byte
-    pieces, so every tensor must start 16-byte aligned), else ``"fma"``."""
+def _mma_ok(q, *tensors) -> bool:
+    """Whether the ``mma`` routes take these tensors: bf16 with 32 < D <= 80
+    and D % 8 == 0, every tensor 16-byte aligned (they copy 16-byte
+    pieces)."""
     D = q.shape[-1]
-    if q.dtype == torch.bfloat16 and _build.aligned16(q, k, v, o):
-        if 32 < D <= 80 and D % 8 == 0:
-            return "mma"
-        if D == 512:
-            return "d512"
+    return (q.dtype == torch.bfloat16 and 32 < D <= 80 and D % 8 == 0
+            and _build.aligned16(q, *tensors))
+
+
+def fwd_route(q, k, v, o) -> str:
+    """K1's route for these tensors: ``"mma"`` where ``_mma_ok``,
+    ``"d512"`` for bf16 with D = 512 (16-byte aligned too), else
+    ``"fma"``."""
+    if _mma_ok(q, k, v, o):
+        return "mma"
+    if (q.dtype == torch.bfloat16 and q.shape[-1] == 512
+            and _build.aligned16(q, k, v, o)):
+        return "d512"
     return "fma"
+
+
+DQ_ENTRY = {"mma": "emcid_flash_dq_mma", "fma": "emcid_flash_dq"}
+DKV_ENTRY = {"mma": "emcid_flash_dkv_mma", "fma": "emcid_flash_dkv"}
+
+
+def bwd_route(q, k, v, dout, *outs) -> str:
+    """K2's and K3's route for these inputs and outputs: ``"mma"`` under
+    the rule of K1's (``_mma_ok``), else ``"fma"``."""
+    return "mma" if _mma_ok(q, k, v, dout, *outs) else "fma"
 
 
 def flash_fwd(q, k, v, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -134,11 +154,12 @@ def flash_dq(q, k, v, dout, lse, delta, scale: float) -> torch.Tensor:
     _build.check_cuda_inputs("flash_dq", q, k, v, dout)
     _check_rows("flash_dq", lse, delta, B, H, N)
     dq = torch.empty_like(q)
-    _build.run("K2 flash_v2_dq", "emcid_flash_dq",
+    route = bwd_route(q, k, v, dout, dq)
+    _build.run("K2 flash_v2_dq", DQ_ENTRY[route],
                q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                B, H, N, M, D, ctypes.c_float(scale), _build.dtype_code(q),
-               _build.stream_ptr(q))
+               _build.stream_ptr(q), route=route)
     return dq
 
 
@@ -151,11 +172,12 @@ def flash_dkv(q, k, v, dout, lse, delta, scale: float
     _build.check_cuda_inputs("flash_dkv", q, k, v, dout)
     _check_rows("flash_dkv", lse, delta, B, H, N)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _build.run("K3 flash_v2_dkv", "emcid_flash_dkv",
+    route = bwd_route(q, k, v, dout, dk, dv)
+    _build.run("K3 flash_v2_dkv", DKV_ENTRY[route],
                q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                B, H, N, M, D, ctypes.c_float(scale), _build.dtype_code(q),
-               _build.stream_ptr(q))
+               _build.stream_ptr(q), route=route)
     return dk, dv
 
 

@@ -10,15 +10,14 @@ prompts, 50 Stage-1 steps, DPM++ at 10 steps, 384 px, synthetic-corpus
 covariances) three times: once to build the kernels and warm the allocator
 and cuDNN, once timed on the host clock, and once under ``torch.profiler``.
 Prints one JSON object: the phase times of the timed and the profiled run,
-the device time of each hand-written kernel (and of each route of K1 and
-K4) and of the other kernels
-grouped by name, and the device's busy share of the timed run's wall time
-(busy = the sum of the device time of every kernel in the profiled run;
-they run one at a time on the one stream).  The norm knobs come from the
-environment and are printed with the result; beside the hand-written
-kernels it sums PyTorch's own GroupNorm/LayerNorm kernels and the SiLU
-kernels, which the fused norms (K5/K6) replace at the UNet's sites.  The
-top kernels go to ``--out``.
+the device time of each hand-written kernel (and of each route of K1-K4)
+and of the other kernels grouped by name, and the device's busy share of
+the timed run's wall time (busy = the sum of the device time of every
+kernel in the profiled run; they run one at a time on the one stream).
+The norm knobs come from the environment and are printed with the
+result; beside the hand-written kernels it sums PyTorch's own
+GroupNorm/LayerNorm kernels and the SiLU kernels, which the fused norms
+(K5/K6) replace at the UNet's sites.  The top kernels go to ``--out``.
 """
 
 from __future__ import annotations
@@ -40,8 +39,8 @@ REPO = Path(__file__).resolve().parents[1]
 OWN_KERNELS = {
     "K1 flash_v2_fwd": ("namespace)::fwd_mma_kernel", "namespace)::fwd_d512_kernel",
                         "namespace)::fwd_kernel"),
-    "K2 flash_v2_dq": ("namespace)::dq_tc_kernel", "namespace)::dq_kernel"),
-    "K3 flash_v2_dkv": ("namespace)::dkv_tc_kernel", "namespace)::dkv_kernel"),
+    "K2 flash_v2_dq": ("namespace)::dq_mma_kernel", "namespace)::dq_kernel"),
+    "K3 flash_v2_dkv": ("namespace)::dkv_mma_kernel", "namespace)::dkv_kernel"),
     "K4 short_kv_fwd": ("namespace)::short_kv_mma_kernel",
                         "namespace)::short_kv_kernel"),
     "K5f groupnorm_fwd": ("namespace)::gn_fwd_kernel",),
@@ -58,11 +57,15 @@ STOCK = {
         "ComputeBackwardFusedParams", "GammaBeta", "ComputeGradOutput"),
     "stock SiLU": ("silu",),
 }
-# the routes of K1 and K4, one kernel each
+# the routes of K1-K4, one kernel each
 ROUTE_KERNELS = {
     "K1 mma": ("namespace)::fwd_mma_kernel",),
     "K1 d512": ("namespace)::fwd_d512_kernel",),
     "K1 fma": ("namespace)::fwd_kernel",),
+    "K2 mma": ("namespace)::dq_mma_kernel",),
+    "K2 fma": ("namespace)::dq_kernel",),
+    "K3 mma": ("namespace)::dkv_mma_kernel",),
+    "K3 fma": ("namespace)::dkv_kernel",),
     "K4 mma": ("namespace)::short_kv_mma_kernel",),
     "K4 fma": ("namespace)::short_kv_kernel",),
 }

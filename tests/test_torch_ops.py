@@ -1,6 +1,6 @@
 """PyTorch port, ops: attention dispatch (CPU path), the plain versions of
-the four CUDA kernels, the route K1 and K4 take for a dtype and head dim,
-and the closed-form solve, each against the JAX package on the same numpy
+the four CUDA kernels, the route K1-K4 take for a dtype and head dim, and
+the closed-form solve, each against the JAX package on the same numpy
 inputs.
 
 The CUDA kernels themselves run only on the card (``chip_smoke.py`` holds
@@ -17,19 +17,30 @@ import torch
 
 from emcid_tpu.ops.attention import _flash_forward
 from emcid_tpu.ops.attention import attention as jax_attention
+from emcid_tpu.ops.flash_v2 import _bwd as jax_flash_v2_bwd
 from emcid_tpu.ops.flash_v2 import _fwd as jax_flash_v2_fwd
 from emcid_tpu.ops.flash_v2 import flash_attention_v2 as jax_flash_v2
 from emcid_tpu.ops.solve import solve_adj_k as jax_solve
 
 from emcid_torch.ops import _build
 from emcid_torch.ops.attention import (
+    SHORT_KV_ENTRY,
     attention,
     flash_attention,
     mha_chunked,
     short_kv_fwd,
     short_kv_route,
 )
-from emcid_torch.ops.flash_v2 import flash_attention_v2, flash_fwd, fwd_route
+from emcid_torch.ops import flash_v2 as fv2
+from emcid_torch.ops.flash_v2 import (
+    bwd_route,
+    flash_attention_v2,
+    flash_dkv_plain,
+    flash_dq_plain,
+    flash_fwd,
+    fwd_route,
+    row_delta,
+)
 from emcid_torch.ops.solve import solve_adj_k, upd_matrix_match_shape
 
 
@@ -127,6 +138,12 @@ def test_short_kv_plain_matches_jax_kernel(shape):
 # of the largest output value; 2e-2 of it is the bound.  The scores and the
 # lse are f32 products of the same bf16 values in both.
 BF16_TOL = 2e-2
+# The backward (K2/K3) on the same bf16 inputs, lse and O: the Pallas
+# kernels also round dS = P * (dP - delta) to bf16 before dS.K and dS^T.Q
+# (2^-9 relative per term, in sums over every key or query of random
+# sign); the gradients agree to under 1% of the largest value, and the
+# bound is again 2e-2 of it.
+BF16_BWD_TOL = 2e-2
 
 
 def _bf16(*xs):
@@ -138,17 +155,50 @@ def _bf16(*xs):
     return out
 
 
+def _bwd_bf16_vs_pallas(kernel, B, N, H, D, qj, kj, vj, qt, kt, vt):
+    """K2's or K3's plain version against the Pallas backward in interpret
+    mode, both on the same bf16 inputs and cotangent and on K1's lse and O
+    (the Pallas forward's, as the JAX backward reads them)."""
+    s = D ** -0.5
+    (gj, gt), = _bf16(np.random.RandomState(10).randn(B, N, H, D)
+                      .astype(np.float32))
+    o_j, lse_j = jax_flash_v2_fwd(qj, kj, vj, s, interpret=True)
+    refs = jax_flash_v2_bwd((qj, kj, vj, lse_j, o_j), gj, s, interpret=True)
+    lse = torch.from_numpy(np.asarray(lse_j)[:, 0, :N].reshape(B, H, N).copy())
+    o = torch.from_numpy(np.array(o_j.astype(jnp.float32))).to(torch.bfloat16)
+    delta = row_delta(o, gt)
+    if kernel == "K2":
+        pairs = [(flash_dq_plain(qt, kt, vt, gt, lse, delta, s), refs[0])]
+    else:
+        dk, dv = flash_dkv_plain(qt, kt, vt, gt, lse, delta, s)
+        pairs = [(dk, refs[1]), (dv, refs[2])]
+    for got, ref in pairs:
+        assert got.dtype == torch.bfloat16
+        ref = np.asarray(ref.astype(jnp.float32))
+        err = np.abs(got.float().numpy() - ref).max()
+        assert err <= BF16_BWD_TOL * np.abs(ref).max()
+
+
 @pytest.mark.parametrize("kernel,shape", [
     ("K1", (1, 256, 256, 2, 40)),   # the mma route's head dim
     ("K1", (2, 300, 300, 1, 40)),   # ragged N and M
     ("K4", (1, 256, 77, 2, 40)),    # the cross-attention shape
     ("K4", (1, 300, 200, 2, 40)),   # M past one 80-key chunk
+    ("K2", (1, 256, 256, 2, 40)),   # the mma route's head dims
+    ("K2", (2, 300, 300, 1, 40)),   # ragged N and M
+    ("K2", (1, 256, 256, 1, 80)),
+    ("K3", (1, 256, 256, 2, 40)),
+    ("K3", (2, 300, 300, 1, 40)),
+    ("K3", (1, 256, 256, 1, 80)),
 ])
 def test_plain_bf16_matches_pallas(kernel, shape):
-    """K1 and K4's plain versions on bf16 inputs against the Pallas kernels
-    in interpret mode on the same bf16 inputs."""
+    """K1-K4's plain versions on bf16 inputs against the Pallas kernels in
+    interpret mode on the same bf16 inputs."""
     B, N, M, H, D = shape
     (qj, qt), (kj, kt), (vj, vt) = _bf16(*_qkv(9, B, N, M, H, D))
+    if kernel in ("K2", "K3"):
+        _bwd_bf16_vs_pallas(kernel, B, N, H, D, qj, kj, vj, qt, kt, vt)
+        return
     if kernel == "K1":
         ref, lse_ref = jax_flash_v2_fwd(qj, kj, vj, D ** -0.5, interpret=True)
         got, lse = flash_fwd(qt, kt, vt, D ** -0.5)
@@ -184,22 +234,58 @@ def _route_inputs(dtype, D, misaligned=False):
     ("K4", torch.bfloat16, 80, False, "mma"),
     ("K4", torch.float32, 40, False, "fma"),
     ("K4", torch.bfloat16, 512, False, "fma"),
-])
+] + [(kernel, dtype, D, misaligned, route)
+     for kernel in ("K2", "K3")
+     for dtype, D, misaligned, route in (
+         (torch.bfloat16, 40, False, "mma"),
+         (torch.bfloat16, 80, False, "mma"),
+         (torch.float32, 40, False, "fma"),
+         (torch.bfloat16, 16, False, "fma"),
+         (torch.bfloat16, 512, False, "fma"),
+         (torch.bfloat16, 40, True, "fma"))])   # not 16-byte aligned
 def test_kernel_routes(kernel, dtype, D, misaligned, route):
-    """The route K1 (``fwd_route``) and K4 (``short_kv_route``) take: the
-    tensor-core routes for bf16 at the UNet's head dims (and the VAE's
-    512-wide head for K1), the float-FMA kernels for the rest."""
-    pick = fwd_route if kernel == "K1" else short_kv_route
-    assert pick(*_route_inputs(dtype, D, misaligned)) == route
+    """The route K1 (``fwd_route``), K2/K3 (``bwd_route``, on the inputs and
+    the kernel's outputs) and K4 (``short_kv_route``) take: the tensor-core
+    routes for bf16 at the UNet's head dims (and the VAE's 512-wide head for
+    K1), the float-FMA kernels for the rest."""
+    q, k, v, o = _route_inputs(dtype, D, misaligned)
+    if kernel == "K1":
+        got = fwd_route(q, k, v, o)
+    elif kernel == "K2":
+        got = bwd_route(q, k, v, o, torch.empty_like(q))
+    elif kernel == "K3":
+        got = bwd_route(q, k, v, o, torch.empty_like(k), torch.empty_like(v))
+    else:
+        got = short_kv_route(q, k, v, o)
+    assert got == route
 
 
 def test_reset_launches_clears_routes():
     _build.ROUTES["K1 flash_v2_fwd"]["mma"] = 3
+    _build.ROUTES["K2 flash_v2_dq"]["mma"] = 2
+    _build.ROUTES["K3 flash_v2_dkv"]["fma"] = 4
     _build.ROUTES["K4 short_kv_fwd"]["fma"] = 1
     _build.reset_launches()
     assert all(n == 0 for r in _build.ROUTES.values() for n in r.values())
     assert set(_build.ROUTES["K1 flash_v2_fwd"]) == {"mma", "d512", "fma"}
+    assert set(_build.ROUTES["K2 flash_v2_dq"]) == {"mma", "fma"}
+    assert set(_build.ROUTES["K3 flash_v2_dkv"]) == {"mma", "fma"}
     assert set(_build.ROUTES["K4 short_kv_fwd"]) == {"mma", "fma"}
+
+
+@pytest.mark.parametrize("kernel,entries", [
+    ("K1 flash_v2_fwd", fv2.FWD_ENTRY),
+    ("K2 flash_v2_dq", fv2.DQ_ENTRY),
+    ("K3 flash_v2_dkv", fv2.DKV_ENTRY),
+    ("K4 short_kv_fwd", SHORT_KV_ENTRY),
+])
+def test_route_entry_points_are_bound(kernel, entries):
+    """Every route a wrapper can pick is counted in ``ROUTES`` and names a C
+    entry point that ``_build`` binds, with the same signature as the
+    kernel's other routes."""
+    assert set(entries) == set(_build.ROUTES[kernel])
+    sigs = [_build._SIGNATURES[name] for name in entries.values()]
+    assert all(sig == sigs[0] for sig in sigs)
 
 
 def test_short_kv_backward_is_chunked_recompute():
