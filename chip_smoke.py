@@ -21,14 +21,22 @@ Phases, each printing one JSON line:
    deltas, only the fc2 weights of the edited layers changed, the on-card
    Stage-2 solve against the host float64 one, the tensor-core routes of
    K1-K4 taken and no float-FMA route);
-4. model checks: that pipeline's bf16 UNet at the Stage-1 shape and its
+4. the variant paths on that pipeline, each with the launch count of every
+   kernel and route during its run, its seconds and checks of what comes
+   out: (a) EWC with the UCE hybrid (the Fisher diagonal computed over 4
+   generated pairs, cached and read back; the UCE solve against a host
+   float64 solve of the same normal matrix), (b) the esd objective,
+   (c) an SLD-supervised request, (d) txt-img-align with a full-width
+   random CLIP ViT-L/14 vision tower; 2 concepts (one SLD request), 10
+   Stage-1 steps, the main path's cached covariances;
+5. model checks: that pipeline's bf16 UNet at the Stage-1 shape and its
    bf16 VAE (decode and re-encode of a 48x48 latent) with attention
    through the kernels against the plain attention path; the UNet in f32
    with its attention through the kernels (and, with
    ``EMCID_TPU_FUSED_GN`` at 1 or geo and ``EMCID_TPU_FUSED_LN=1``, its
    norms too) against the same UNet with the knobs off and every attention
    on the plain path, for eps and for the gradient into the text context;
-5. the CLI path: ``emcid_torch.cli.run_emcid`` with both norm knobs on, on
+6. the CLI path: ``emcid_torch.cli.run_emcid`` with both norm knobs on, on
    a local HF-format checkpoint folder of the full-width pipeline (random
    f32 weights from seed 0): pre-edit generation, ``apply_emcid``,
    post-edit generation, with the launch count of every kernel, phase
@@ -639,12 +647,12 @@ REQUESTS = [{"prompts": ["a photo of a {}", "an image of a {}", "{}"],
             for i in range(4)]
 
 
-def main_path(torch, failures):
+def main_path(torch, stats_dir, failures):
     """apply_emcid on the full-width SD-v1.4 pipeline with the norm knobs
     off (stock norms): 4 concepts in one block, 50 Stage-1 steps (cosine
     schedule: 30 run; the K=25 eps_dest pool engages), DPM++ training
     images at 10 steps (CFG interval 0.6) at 384 px, covariances over the
-    2000-caption synthetic corpus."""
+    2000-caption synthetic corpus, cached in ``stats_dir``."""
     import numpy as np
 
     from emcid_torch.engine.editor import apply_emcid
@@ -667,9 +675,8 @@ def main_path(torch, failures):
         _build.reset_launches()
         t0 = time.time()
         edited, deltas = apply_emcid(
-            comps, requests, hp, stats_dir=os.path.join(tmp, "stats"),
-            cache_name=cache_name, num_inference_steps=10, timings=timings,
-            verbose=False)
+            comps, requests, hp, stats_dir=stats_dir, cache_name=cache_name,
+            num_inference_steps=10, timings=timings, verbose=False)
         torch.cuda.synchronize()
         total_s = time.time() - t0
         launches = dict(_build.LAUNCHES)
@@ -724,6 +731,167 @@ def main_path(torch, failures):
     return launches, comps
 
 
+VARIANT_REQUESTS = REQUESTS[:2]
+SLD_REQUEST = {"source_prompts": ["a photo of a w0 w1", "w1 artwork by w2"],
+               "seeds": [1, 2], "safe_words": ["w3"] * 2, "source": "w1",
+               "dest": " ", "source_cat": "w1"}
+# the UCE solve (f32 Cholesky) against the host float64 solve (ROADMAP F1)
+UCE_REL_TOL = 1e-3
+
+
+def uce_f64_check(torch, comps, edited, requests):
+    """The UCE normal equations of the run, rebuilt on the text-edited
+    components: the f32 solve against numpy's float64 solve of the same
+    matrices.  Returns the worst relative Frobenius difference."""
+    import numpy as np
+
+    from emcid_torch.engine.uce import _uce_solve_all, uce_normal_equations
+
+    names, mat1, mat2 = uce_normal_equations(
+        comps.replace_text_encoder(edited.text_encoder),
+        [r["source"] for r in requests],
+        [r.get("dest") or " " for r in requests])
+    a64 = mat2.double().cpu().numpy()
+    worst = 0.0
+    for dim in sorted({mat1[n].shape[0] for n in names}):
+        stack = torch.stack([mat1[n] for n in names
+                             if mat1[n].shape[0] == dim])
+        got = _uce_solve_all(mat2, stack).double().cpu().numpy()
+        ref = np.linalg.solve(a64, stack.double().cpu().numpy()
+                              .transpose(0, 2, 1))
+        worst = max(worst, float(np.linalg.norm(got - ref)
+                                 / np.linalg.norm(ref)))
+    return worst
+
+
+def variants_path(torch, comps, stats_dir, failures):
+    """``apply_emcid``'s variant paths on the main path's bf16 pipeline,
+    knobs off, with its covariance cache (``stats_dir``): (a) EWC at
+    lambda 1e7 with the UCE hybrid (FIM over 4 generated pairs, written to
+    the temp directory by ``resolve_fim`` and read back), (b) the esd
+    objective, (c) one SLD-supervised request, (d) txt-img-align at scale 5
+    with a random full-width CLIP ViT-L/14 vision tower (bf16, seed 0) and
+    a random text projection, the first concept flagged.  2 concepts (one
+    SLD request), 10 Stage-1 steps at the const schedule (no pool), DPM++
+    training images at 10 steps and 384 px (SLD: its 20 DDIM steps at
+    512 px).  Each run's kernel launches are counted alone."""
+    import dataclasses
+
+    import numpy as np
+
+    from emcid_torch.engine.editor import apply_emcid, resolve_covariances_for
+    from emcid_torch.engine.emcid import load_z_list
+    from emcid_torch.engine.fim import fim_candidates, load_fim, resolve_fim
+    from emcid_torch.engine.uce import cross_attn_kv_layer_names
+    from emcid_torch.models.vision import (
+        CLIP_VIT_L14_VISION,
+        build_random_clip_vision,
+    )
+    from emcid_torch.ops import _build
+
+    base = bench_hparams(10)
+    fc2 = {f"text_encoder.text_model.encoder.layers.{i}.mlp.fc2.weight"
+           for i in base.layers}
+    kv = {f"unet.{n}.weight" for n in cross_attn_kv_layer_names(comps.unet)}
+    t0 = time.time()
+    tower = build_random_clip_vision(CLIP_VIT_L14_VISION, seed=0,
+                                     dtype=torch.bfloat16, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    hidden = comps.text_encoder.config.hidden_size
+    proj = torch.randn(hidden, CLIP_VIT_L14_VISION.projection_dim,
+                       generator=g, device="cuda") * hidden ** -0.5
+    torch.cuda.synchronize()
+    tower_s = time.time() - t0
+    tia_reqs = [dict(VARIANT_REQUESTS[0], txt_img_align=True),
+                VARIANT_REQUESTS[1]]
+    runs = (
+        ("a_ewc_uce", dict(use_ewc=True, ewc_lambda=1e7, add_uce_edit=True),
+         VARIANT_REQUESTS, {}, fc2 | kv),
+        ("b_esd", dict(objective="esd", esd_mu=1.0), VARIANT_REQUESTS, {},
+         fc2),
+        ("c_sld", dict(sld_supervision=True, sld_type="max"), [SLD_REQUEST],
+         {}, fc2),
+        ("d_tia", dict(txt_img_align_scale_factor=5.0), tia_reqs,
+         {"clip_align": (tower, proj)}, fc2),
+    )
+    rows = []
+    for name, change, requests, extra, expect in runs:
+        hp = dataclasses.replace(base, **change)
+        checks = {}
+        with environ(EMCID_TPU_FIM_PAIRS="4", **dict.fromkeys(KNOBS)), \
+                tempfile.TemporaryDirectory() as tmp:
+            cache_name = os.path.join(tmp, "z", "")
+            fim_dir = os.path.join(tmp, "fim")
+            timings = {}
+            _build.reset_launches()
+            t0 = time.time()
+            if hp.use_ewc:
+                last = dataclasses.replace(hp, layers=[hp.layers[-1]])
+                cov = resolve_covariances_for(
+                    comps.text_encoder, comps.tokenizer, last,
+                    stats_dir=stats_dir, verbose=False)[-1]
+                fim = resolve_fim(comps, hp, cov=cov, fim_dir=fim_dir,
+                                  verbose=False)
+                timings["fim_compute"] = time.time() - t0
+            edited, deltas = apply_emcid(
+                comps, requests, hp, stats_dir=stats_dir,
+                cache_name=cache_name, fim_dir=fim_dir,
+                num_inference_steps=10, z_sched="const", timings=timings,
+                verbose=False, **extra)
+            torch.cuda.synchronize()
+            seconds = time.time() - t0
+            launches = dict(_build.LAUNCHES)
+            routes = copy.deepcopy(_build.ROUTES)
+            z_list, missing = load_z_list(requests, cache_name, hp)
+            if hp.use_ewc:
+                path = fim_candidates(hp, fim_dir)[2]
+                checks.update(
+                    fim_shape=list(fim.shape),
+                    fim_finite=bool(np.isfinite(fim).all()),
+                    fim_npz_reloads_equal=bool(
+                        path.exists()
+                        and np.array_equal(load_fim(path), fim)))
+        if hp.add_uce_edit:
+            checks["uce_f32_vs_f64_rel"] = uce_f64_check(torch, comps, edited,
+                                                         requests)
+            checks["uce_ok"] = checks["uce_f32_vs_f64_rel"] <= UCE_REL_TOL
+        changed = set()
+        for part in ("text_encoder", "unet"):
+            before = dict(getattr(comps, part).named_parameters())
+            changed |= {f"{part}.{k}" for k, v in
+                        getattr(edited, part).named_parameters()
+                        if not torch.equal(v, before[k])}
+        row = dict(
+            phase="variants_path", run=name, hparams=change,
+            concepts=len(requests), grad_steps=hp.v_num_grad_steps,
+            seconds=seconds, **{f"{k}_s": v for k, v in timings.items()},
+            launches=launches, routes=routes,
+            bf16_routes_ok=routes_ok(routes),
+            z_finite=bool(not missing and all(np.isfinite(z).all()
+                                              for z in z_list)),
+            deltas_finite=all(np.isfinite(a).all() and np.isfinite(r).all()
+                              for a, r in deltas.values()),
+            changed_params=len(changed), changed_exact=changed == expect,
+            unexpected_changes=sorted(changed - expect),
+            missing_changes=sorted(expect - changed), **checks)
+        if name == "d_tia":
+            row["vision_tower_build_s"] = tower_s
+        row["ok"] = (row["z_finite"] and row["deltas_finite"]
+                     and row["changed_exact"] and row["bf16_routes_ok"]
+                     and all(launches[k] > 0 for k in ATTENTION)
+                     and all(v for k, v in checks.items()
+                             if k.endswith(("_finite", "_equal", "_ok"))))
+        emit(row)
+        rows.append(row)
+        if not row["ok"]:
+            failures.append(f"variants path {name}: {row}")
+        del edited
+        torch.cuda.empty_cache()
+    del tower
+    torch.cuda.empty_cache()
+    return rows
+
+
 # f32 on both sides under precise_matmuls (no TF32); the two differ only in
 # the order of their sums, through some thirty attention and conv layers
 MODEL_TOL = 1e-3
@@ -734,8 +902,8 @@ def model_check(torch, unet, failures, gn="0", ln="0"):
     latents, 77-token context): attention through the kernels (K1-K4) and,
     with ``EMCID_TPU_FUSED_GN=gn`` / ``EMCID_TPU_FUSED_LN=ln``, the norms
     through K5/K6, against the same UNet with both knobs at 0 and every
-    attention on the plain einsum/softmax path, for eps and for the
-    gradient of a loss with respect to the text context (Stage 1's
+    attention on the plain einsum/softmax path (``EMCID_TPU_NO_FLASH=1``),
+    for eps and for the gradient of a loss with respect to the text context (Stage 1's
     gradient path: K2/K3, K4's chunked backward, K5b and K6b)."""
     from emcid_torch.ops import _build
     from emcid_torch.runtime import precise_matmuls
@@ -759,8 +927,7 @@ def model_check(torch, unet, failures, gn="0", ln="0"):
             eps_k, grad_k = eps_and_grad()
             launches = dict(_build.LAUNCHES)
         # every attention on the plain path, the stock norms
-        with environ(EMCID_TPU_FLASH_MIN_SEQ=str(10 ** 9),
-                     **dict.fromkeys(KNOBS)):
+        with environ(EMCID_TPU_NO_FLASH="1", **dict.fromkeys(KNOBS)):
             eps_p, grad_p = eps_and_grad()
     _, eps_rel = rel_err(eps_k, eps_p)
     _, grad_rel = rel_err(grad_k, grad_p)
@@ -794,7 +961,7 @@ def model_check_bf16(torch, comps, failures):
     latent, re-encode of the decoded image), attention through the kernels
     (K1 mma and d512, K4 mma; K2/K3 and K4's chunked backward) against the
     same modules with every attention on the plain einsum/softmax path
-    (``EMCID_TPU_FLASH_MIN_SEQ=10**9``); the norm knobs off.  The UNet's
+    (``EMCID_TPU_NO_FLASH=1``); the norm knobs off.  The UNet's
     run must take the tensor-core routes of K1 (mma), K2, K3 and K4, the
     VAE's K1's d512 route."""
     from emcid_torch.ops import _build
@@ -825,7 +992,7 @@ def model_check_bf16(torch, comps, failures):
         eps_k, grad_k = unet_eps_and_grad()
         unet_routes = copy.deepcopy(_build.ROUTES)
         _build.reset_launches()
-        with environ(EMCID_TPU_FLASH_MIN_SEQ=str(10 ** 9)):
+        with environ(EMCID_TPU_NO_FLASH="1"):
             eps_p, grad_p = unet_eps_and_grad()
             img_p, z_p = vae_decode_encode()
         dec_k, z_k = vae_decode_encode(img_p)  # both encode the same image
@@ -1007,7 +1174,9 @@ def main(argv=None) -> int:
         for f in failures:
             print(f"FAILED: {f}", file=sys.stderr)
         return 1 if failures else 0
-    _, comps = main_path(torch, failures)
+    with tempfile.TemporaryDirectory() as stats_dir:
+        _, comps = main_path(torch, stats_dir, failures)
+        variants_path(torch, comps, stats_dir, failures)
     model_check_bf16(torch, comps, failures)
     unet = copy.deepcopy(comps.unet).float()
     del comps

@@ -4,12 +4,21 @@ Counterpart of ``emcid_tpu/engine/compute_z.py``.  For each concept, a
 delta added to the edit-token hidden state at the last edited layer is
 optimized to minimize
 
-    MSE(UNet(noisy, t, edited source text), UNet(noisy, t, dest text))
-  + v_weight_decay * |delta| / |z0|^2
+    MSE(UNet(noisy, t, edited source text), target)      [noise loss]
+  + v_weight_decay * |delta| / |z0|^2                     [or EWC]
   + text_repr_loss_scale * MSE(edited pooler, dest pooler)
+  + txt_img_align_scale * tia_weight * TIA                [txt-img-align]
 
 with Adam and an L2-ball projection |delta| <= clamp_norm_factor * |z0|
-after every step.
+after every step.  The noise-loss target is UNet(noisy, t, dest text)
+(ablate-dest / ablate-source), ``eps_dest - mu * (eps_src - eps_dest)``
+with the unedited source text's eps_src (``objective="esd"``), or the true
+noise (``use_sampled_noise``); ``no_noise_loss`` drops the term.  EWC
+replaces the weight decay by ``sum(ewc_lambda * fim * delta^2) /
+(2 |z0|^2)``.  ``align_object_token`` aligns the edited and dest hidden
+states at their subject tokens instead of the poolers.  TIA pulls the
+CLIP-projected edited pooler toward the dest images' CLIP embedding
+(``txt_img_align_loss_metric`` "l2" or "cos").
 
 The JAX package vmaps one concept's loss over the block.  Here the block's
 C x P prompts form one UNet batch; the C per-concept losses are summed and
@@ -29,7 +38,8 @@ schedule do not engage (as in JAX).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import os
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -39,9 +49,6 @@ from emcid_torch.models.scheduler import Schedule, add_noise
 from emcid_torch.text.token_range import find_token_range
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
-# the cosine z schedule: Adam over Z_FRAC of the steps, the learning rate
-# decaying from Z_PEAK * v_lr (the JAX package's defaults)
-Z_FRAC, Z_PEAK = 0.6, 2.0
 
 
 class ConceptBatch(NamedTuple):
@@ -130,25 +137,36 @@ def concept_batch_to_device(arrays: Dict[str, Any], device) -> ConceptBatch:
     return ConceptBatch(**out)
 
 
-def check_supported(hparams) -> None:
-    """Stage-1 variants the port does not run yet raise here."""
-    unsupported = {
-        "use_ewc": "EWC/FIM (ROADMAP M9: engine/fim.py)",
-        "use_sampled_noise": "use_sampled_noise (ROADMAP M9)",
-        "no_noise_loss": "no_noise_loss (ROADMAP M9)",
-        "align_object_token": "align_object_token (ROADMAP M9)",
-        "sld_supervision": "SLD supervision (ROADMAP M9: "
-                           "engine/compute_z_variants.py)",
-        "add_uce_edit": "UCE hybrid (ROADMAP M9: engine/uce.py)",
-    }
-    for name, what in unsupported.items():
-        if getattr(hparams, name, False):
-            raise NotImplementedError(what)
-    if hparams.objective not in ("ablate-dest", "ablate-source"):
-        raise NotImplementedError(
-            f"objective {hparams.objective!r} (ROADMAP M9)")
-    if getattr(hparams, "txt_img_align_scale_factor", 0.0):
-        raise NotImplementedError("txt-img-align (ROADMAP M9)")
+def check_supported(hparams, mesh=None) -> None:
+    """What the port refuses: ``mesh=`` sharding (ROADMAP M14), and an
+    objective or txt-img-align metric that has no loss in the JAX package
+    either."""
+    if mesh is not None:
+        raise NotImplementedError("mesh= sharding (ROADMAP M14)")
+    if hparams.objective not in ("ablate-dest", "ablate-source", "esd"):
+        raise ValueError(f"objective not supported: {hparams.objective!r}")
+    metric = getattr(hparams, "txt_img_align_loss_metric", "l2")
+    if (getattr(hparams, "txt_img_align_scale_factor", 0.0)
+            and metric not in ("l2", "cos")):
+        raise ValueError(f"txt_img_align_loss_metric {metric!r} not "
+                         "supported")
+
+
+def _env(name: str, default, cast):
+    """A dataclass default read from the environment at instance time;
+    an explicit constructor argument wins."""
+    return field(default_factory=lambda: cast(os.environ.get(name, default)))
+
+
+def _f32(x, dev) -> torch.Tensor:
+    """An array or tensor as an f32 tensor on ``dev``."""
+    return torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x)).to(
+        dev, torch.float32)
+
+
+def _mse(a, b, C: int) -> torch.Tensor:
+    """Per-concept mean squared difference (C,) of (C*..., ...) tensors."""
+    return (a - b).pow(2).reshape(C, -1).mean(dim=1)
 
 
 @dataclass
@@ -160,14 +178,20 @@ class ZOptimizer:
     schedule: Schedule
     hparams: Any
     layer: int
-    # eps_dest pool of K (noisy, t, eps_dest) draws made once with
-    # no-grad forwards and re-drawn from every step (0 = a fresh eps_dest
-    # forward every step, the reference protocol)
-    eps_pool: int = 0
+    # eps_dest pool of K (noisy, t, eps_dest[, eps_src]) draws made once
+    # with no-grad forwards and re-drawn from every step (0 = fresh
+    # forwards every step, the reference protocol)
+    eps_pool: int = _env("EMCID_TPU_EPS_POOL", 0, int)
     # "const": Adam at v_lr for v_num_grad_steps (reference protocol);
-    # "cosine": cosine decay from Z_PEAK * v_lr over Z_FRAC of the steps,
+    # "cosine": cosine decay from z_peak * v_lr over z_frac of the steps,
     # only for runs of >= 50 steps
-    lr_sched: str = "const"
+    lr_sched: str = _env("EMCID_TPU_Z_SCHED", "const", str)
+    z_frac: float = _env("EMCID_TPU_Z_FRAC", 0.6, float)
+    z_peak: float = _env("EMCID_TPU_Z_PEAK", 2.0, float)
+    # EWC Fisher diagonal (hidden,), required by hparams.use_ewc
+    fim: Optional[Any] = None
+    # (hidden, embed) CLIP text projection, required by run(dest_img_emb=)
+    text_projection: Optional[Any] = None
 
     def __post_init__(self):
         check_supported(self.hparams)
@@ -178,8 +202,8 @@ class ZOptimizer:
         total = self.hparams.v_num_grad_steps
         v_lr = self.hparams.v_lr
         if self.lr_sched == "cosine" and total >= 50 and not replay:
-            peak = v_lr * Z_PEAK
-            total = max(1, int(round(Z_FRAC * total)))
+            peak = v_lr * float(self.z_peak)
+            total = max(1, int(round(float(self.z_frac) * total)))
             return (0.5 * peak * (1.0 + np.cos(
                 np.pi * np.arange(total) / total))).astype(np.float32)
         return np.full(max(total, 1), v_lr, np.float32)
@@ -187,8 +211,8 @@ class ZOptimizer:
     # -- pieces ------------------------------------------------------------
     def _draw(self, batch: ConceptBatch, gen: torch.Generator):
         """One (noisy, t) draw per (concept, prompt): image index, posterior
-        sample, noise, timestep.  Returns NCHW noisy (C*P, c, h, w) and
-        t (C*P,)."""
+        sample, noise, timestep.  Returns the latents and noise
+        (C, P, h, w, c) and t (C, P)."""
         mean, logvar = batch.latents_mean, batch.latents_logvar
         C, Simg, P = mean.shape[:3]
         dev = mean.device
@@ -204,7 +228,6 @@ class ZOptimizer:
         return lat, noise, t
 
     def _noisy(self, lat, noise, t):
-        C, P = t.shape
         x = add_noise(self.schedule, lat.flatten(0, 1), noise.flatten(0, 1),
                       t.flatten())
         return x.permute(0, 3, 1, 2), t.flatten()
@@ -214,22 +237,29 @@ class ZOptimizer:
         return self.unet(noisy.to(dtype), t, ctx).sample.float()
 
     @torch.no_grad()
-    def _build_pool(self, batch: ConceptBatch, dest_hidden, K: int,
-                    gen: torch.Generator) -> Dict[str, torch.Tensor]:
-        noisy, ts, eps = [], [], []
+    def _build_pool(self, batch: ConceptBatch, dest_hidden, source_hidden,
+                    K: int, gen: torch.Generator) -> Dict[str, torch.Tensor]:
+        pool: Dict[str, List[torch.Tensor]] = {"noisy": [], "t": [],
+                                               "eps_dest": []}
+        if source_hidden is not None:
+            pool["eps_src"] = []
         for _ in range(K):
             x, t = self._noisy(*self._draw(batch, gen))
-            noisy.append(x)
-            ts.append(t)
-            eps.append(self._unet(x, t, dest_hidden))
-        return dict(noisy=torch.stack(noisy), t=torch.stack(ts),
-                    eps_dest=torch.stack(eps))  # (K, C*P, ...)
+            pool["noisy"].append(x)
+            pool["t"].append(t)
+            pool["eps_dest"].append(self._unet(x, t, dest_hidden))
+            if source_hidden is not None:
+                pool["eps_src"].append(self._unet(x, t, source_hidden))
+        return {k: torch.stack(v) for k, v in pool.items()}  # (K, C*P, ...)
 
     # -- main --------------------------------------------------------------
     def run(self, batch: ConceptBatch, gen: Optional[torch.Generator] = None,
-            noise_override=None, ts_override=None):
+            noise_override=None, ts_override=None, dest_img_emb=None,
+            tia_weight=None):
         """Optimize a block -> (zs (C, T, H), delta, z0, losses (steps,)),
-        f32 tensors on the batch's device."""
+        f32 tensors on the batch's device.  ``dest_img_emb`` (C, P, E) with
+        the per-concept ``tia_weight`` (C,) (default ones) turns on the
+        txt-img-align term."""
         hp = self.hparams
         dev = batch.source_ids.device
         if gen is None:
@@ -241,11 +271,35 @@ class ZOptimizer:
         lrs = self.lr_values(replay)
         total = len(lrs) if hp.v_num_grad_steps else 0
         src_ids = batch.source_ids.reshape(C * P, S)
+        is_esd = hp.objective == "esd"
+        noise_loss = not hp.no_noise_loss
+        fresh_dest = noise_loss and not hp.use_sampled_noise
+        ci = torch.arange(C, device=dev)[:, None]
+        pi = torch.arange(P, device=dev)[None, :]
+
+        fim = None
+        if hp.use_ewc:
+            if self.fim is None:
+                raise ValueError("use_ewc=True requires a FIM array")
+            fim = _f32(self.fim, dev)
+        tia = dest_img_emb is not None
+        if tia:
+            if self.text_projection is None:
+                raise ValueError(
+                    "txt_img_align requires a text_projection matrix "
+                    "(hidden, embed) on the ZOptimizer")
+            text_proj = _f32(self.text_projection, dev)
+            emb = _f32(dest_img_emb, dev)
+            tia_w = (torch.ones(C, device=dev) if tia_weight is None
+                     else _f32(tia_weight, dev))
 
         with torch.no_grad():
             dest = self.text_model(batch.dest_ids.reshape(C * P, S))
             dest_hidden = dest.last_hidden_state
             dest_pooled = dest.pooled_output.float().reshape(C, P, H)
+            source_hidden = None
+            if is_esd:
+                source_hidden = self.text_model(src_ids).last_hidden_state
             out0 = self.text_model(batch.source_ids[:, 0],
                                    capture=("layer_out",),
                                    stop_at_layer=self.layer)
@@ -255,51 +309,91 @@ class ZOptimizer:
             z0_norm = z0.reshape(C, -1).norm(dim=-1)
 
         pool = None
-        if self.eps_pool and total and not replay:
-            pool = self._build_pool(batch, dest_hidden, int(self.eps_pool), gen)
+        if (self.eps_pool and total and not replay and noise_loss
+                and not hp.use_sampled_noise):
+            pool = self._build_pool(batch, dest_hidden, source_hidden,
+                                    int(self.eps_pool), gen)
         if replay:
             noise_override = torch.as_tensor(noise_override, device=dev).float()
             ts_override = torch.as_tensor(ts_override, device=dev).long()
+        mu = (float(hp.esd_mu) if hp.esd_mu not in (None, "None") else 1.0)
 
         delta = torch.zeros((C, T, H), device=dev, requires_grad=True)
-        mu = torch.zeros_like(delta)
-        nu = torch.zeros_like(delta)
+        m1 = torch.zeros_like(delta)
+        m2 = torch.zeros_like(delta)
         max_norm = hp.clamp_norm_factor * z0_norm
         losses = []
         for step in range(total):
+            eps_src = None
             if pool is not None:
                 K = pool["noisy"].shape[0]
                 idx = (torch.randint(0, K, (C * P,), generator=gen, device=dev),
                        torch.arange(C * P, device=dev))
                 noisy, t = pool["noisy"][idx], pool["t"][idx]
                 eps_dest = pool["eps_dest"][idx]
+                if is_esd:
+                    eps_src = pool["eps_src"][idx]
             else:
                 lat, noise, t = self._draw(batch, gen)
                 if replay:
                     noise, t = noise_override[step], ts_override[step]
                 noisy, t = self._noisy(lat, noise, t)
                 with torch.no_grad():
-                    eps_dest = self._unet(noisy, t, dest_hidden)
+                    if fresh_dest:
+                        eps_dest = self._unet(noisy, t, dest_hidden)
+                    if noise_loss and is_esd:
+                        eps_src = self._unet(noisy, t, source_hidden)
 
             inj = torch.einsum("ctps,cth->cpsh", batch.inject_mask, delta)
             edited = self.text_model(src_ids, inject_layer=self.layer,
                                      inject_delta=inj.reshape(C * P, S, H))
-            eps_edit = self._unet(noisy, t, edited.last_hidden_state)
-            mse = (eps_edit - eps_dest).pow(2).reshape(C, -1).mean(dim=1)
-            # safe norm: its gradient at delta = 0 is 0, not NaN
-            d_norm = torch.sqrt(delta.pow(2).reshape(C, -1).sum(dim=1) + 1e-12)
-            loss = mse + hp.v_weight_decay * d_norm / z0_norm ** 2
+            if not noise_loss:
+                loss = torch.zeros(C, device=dev)
+            else:
+                eps_edit = self._unet(noisy, t, edited.last_hidden_state)
+                if is_esd:
+                    loss = _mse(eps_edit, eps_dest - mu * (eps_src - eps_dest),
+                                C)
+                elif hp.use_sampled_noise:
+                    loss = _mse(noise.flatten(0, 1).permute(0, 3, 1, 2),
+                                eps_edit, C)
+                else:  # ablate-dest / ablate-source
+                    loss = _mse(eps_edit, eps_dest, C)
+            if hp.use_ewc:
+                loss = loss + (float(hp.ewc_lambda) * fim * delta.pow(2)
+                               ).reshape(C, -1).sum(dim=1) / (
+                                   2.0 * z0_norm ** 2)
+            else:
+                # safe norm: its gradient at delta = 0 is 0, not NaN
+                d_norm = torch.sqrt(delta.pow(2).reshape(C, -1).sum(dim=1)
+                                    + 1e-12)
+                loss = loss + hp.v_weight_decay * d_norm / z0_norm ** 2
             if hp.cal_text_repr_loss:
-                talign = (edited.pooled_output.float().reshape(C, P, H)
-                          - dest_pooled).pow(2).reshape(C, -1).mean(dim=1)
+                if hp.align_object_token:
+                    e_h = edited.last_hidden_state.float().reshape(C, P, S, H)
+                    d_h = dest_hidden.float().reshape(C, P, S, H)
+                    talign = _mse(e_h[ci, pi, batch.source_lookup],
+                                  d_h[ci, pi, batch.dest_lookup], C)
+                else:  # pooler alignment (the shipped default)
+                    talign = _mse(edited.pooled_output.float().reshape(
+                        C, P, H), dest_pooled, C)
                 loss = loss + hp.text_repr_loss_scale_factor * talign
+            if tia:
+                e_txt = edited.pooled_output.float().reshape(C, P, H) @ text_proj
+                if hp.txt_img_align_loss_metric == "cos":
+                    cos = (e_txt / e_txt.norm(dim=-1, keepdim=True)
+                           * emb / emb.norm(dim=-1, keepdim=True)).sum(-1)
+                    term = -(cos.mean(dim=1) - 1.0)
+                else:  # "l2"
+                    term = _mse(e_txt, emb, C)
+                loss = loss + hp.txt_img_align_scale_factor * tia_w * term
             grad, = torch.autograd.grad(loss.sum(), delta)
             with torch.no_grad():
-                mu.mul_(ADAM_B1).add_(grad, alpha=1 - ADAM_B1)
-                nu.mul_(ADAM_B2).addcmul_(grad, grad, value=1 - ADAM_B2)
+                m1.mul_(ADAM_B1).add_(grad, alpha=1 - ADAM_B1)
+                m2.mul_(ADAM_B2).addcmul_(grad, grad, value=1 - ADAM_B2)
                 n = step + 1
-                upd = (mu / (1 - ADAM_B1 ** n)) / (
-                    torch.sqrt(nu / (1 - ADAM_B2 ** n)) + ADAM_EPS)
+                upd = (m1 / (1 - ADAM_B1 ** n)) / (
+                    torch.sqrt(m2 / (1 - ADAM_B2 ** n)) + ADAM_EPS)
                 delta -= float(lrs[step]) * upd
                 # L2-ball projection per concept
                 dn = delta.reshape(C, -1).norm(dim=-1)

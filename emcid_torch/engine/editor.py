@@ -9,6 +9,13 @@ Counterpart of ``emcid_tpu/engine/editor.py``.  In order:
 3. the one-pass Stage-2 insert.
 
 Returns (edited components, deltas); the given components are unchanged.
+The hparams variants dispatch as in the JAX package: ``sld_supervision``
+requests take the SLD-supervised per-request path
+(``compute_z_variants``); a nonzero ``txt_img_align_scale_factor`` with
+requests flagged ``txt_img_align`` adds the image-side alignment term
+(``clip_align=(vision_model, text_projection)``); ``use_ewc`` resolves the
+Fisher diagonal (``engine/fim``); ``add_uce_edit`` follows Stage 2 with the
+UCE cross-attention edit (``engine/uce``).
 The product defaults of the JAX package hold, with the same restore
 knobs: DPM++ training images at <= 25 steps (``train_sampler="pndm"``
 restores), the K=25 eps_dest pool (``eps_dest_pool=0``; the default K is
@@ -21,6 +28,7 @@ training at the native-512 shape (``train_res=512`` /
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -39,6 +47,7 @@ from emcid_torch.engine.emcid import (
     load_z_list,
     save_z_cache,
 )
+from emcid_torch.engine.fim import resolve_fim
 from emcid_torch.engine.layer_stats import get_cov_text_encoder
 from emcid_torch.engine.training_images import training_latents_for_requests
 from emcid_torch.globals_cfg import STATS_DIR
@@ -113,6 +122,23 @@ def resolve_train_res(components: SDComponents,
     return int(train_res)
 
 
+def _image_embeddings(clip_align, imgs, C: int, P: int) -> np.ndarray:
+    """CLIP embeddings (C, P, E) of the first sample of each prompt's
+    training images ``imgs`` ([-1, 1], (C*Simg*P, H, W, 3))."""
+    from emcid_torch.models.vision import (
+        CLIP_IMAGE_MEAN,
+        CLIP_IMAGE_STD,
+        preprocess_for_model,
+    )
+
+    vision = clip_align[0]
+    px = preprocess_for_model((imgs + 1.0) / 2.0, vision.config.image_size,
+                              CLIP_IMAGE_MEAN, CLIP_IMAGE_STD)
+    with torch.no_grad():
+        emb = vision(px).float()
+    return emb.reshape(C, -1, P, emb.shape[-1])[:, 0].cpu().numpy()
+
+
 def compute_zs_for_requests(
     components: SDComponents,
     requests: Sequence[Dict],
@@ -121,6 +147,9 @@ def compute_zs_for_requests(
     block_size: int = 8,
     rng_seed: int = 0,
     num_inference_steps: int = 50,
+    fim: Optional[np.ndarray] = None,
+    mesh=None,
+    clip_align=None,
     train_sampler: str = "dpm++",
     train_steps: Optional[int] = None,
     eps_dest_pool: Optional[int] = None,
@@ -133,9 +162,50 @@ def compute_zs_for_requests(
     """All concepts' z vectors (R, T, H): z-cache hits plus Stage-1 runs in
     blocks of ``block_size`` concepts.  ``timings`` (when given) collects
     the seconds spent generating training images ("generation") and
-    optimizing ("stage1")."""
-    check_supported(hparams)
+    optimizing ("stage1"), or both for SLD-supervised requests ("sld").
+
+    ``sld_supervision`` requests each take the SLD-supervised path, seeded
+    ``rng_seed + i``.  Txt-img-align is active when
+    ``txt_img_align_scale_factor`` is nonzero and a request carries the
+    ``txt_img_align`` flag; it needs ``clip_align=(vision_model,
+    text_projection (hidden, embed))``: flagged concepts train on images of
+    their dest prompts, unflagged ones in the same block keep their source
+    images.  ``use_ewc`` without ``fim`` resolves the Fisher diagonal from
+    the last edited layer's covariance."""
+    check_supported(hparams, mesh)
+    dev = components.device
     z_list, missing = load_z_list(requests, cache_name, hparams)
+    if missing and getattr(hparams, "sld_supervision", False):
+        from emcid_torch.engine.compute_z_variants import (
+            compute_z_text_encoder_global,
+        )
+
+        t0 = time.time()
+        for i in missing:
+            z = compute_z_text_encoder_global(
+                components, requests[i], hparams, hparams.layers[-1],
+                gen=torch.Generator(device=dev).manual_seed(rng_seed + i),
+                verbose=verbose)
+            z_list[i] = z
+            if cache_name is not None:
+                save_z_cache(cache_name, requests[i], z, hparams, idx=i)
+        if timings is not None:
+            timings["sld"] = time.time() - t0
+        missing = []
+    tia_scale = getattr(hparams, "txt_img_align_scale_factor", 0.0)
+    tia_active = bool(tia_scale) and any(bool(r.get("txt_img_align"))
+                                         for r in requests)
+    if tia_active and clip_align is None:
+        raise ValueError(
+            "txt_img_align requested (hparams.txt_img_align_scale_factor="
+            f"{tia_scale}, flagged requests present) but no clip_align="
+            "(vision_model, text_projection) was given")
+    if missing and getattr(hparams, "use_ewc", False) and fim is None:
+        last_only = dataclasses.replace(hparams, layers=[hparams.layers[-1]])
+        cov = resolve_covariances_for(components.text_encoder,
+                                      components.tokenizer, last_only,
+                                      verbose=verbose)[-1]
+        fim = resolve_fim(components, hparams, cov=cov, verbose=verbose)
     if missing:
         if eps_dest_pool is None:
             # the pool pays only when it amortizes over more steps than K
@@ -146,13 +216,18 @@ def compute_zs_for_requests(
         optz = ZOptimizer(components.text_encoder, components.unet,
                           components.schedule, hparams,
                           layer=hparams.layers[-1],
-                          eps_pool=int(eps_dest_pool), lr_sched=z_sched)
+                          eps_pool=int(eps_dest_pool), lr_sched=z_sched,
+                          fim=fim,
+                          text_projection=(clip_align[1] if tia_active
+                                           else None))
         res = resolve_train_res(components, train_res)
         if train_steps is None:
             train_steps = (min(num_inference_steps, 25)
                            if train_sampler == "dpm++"
                            else num_inference_steps)
-        dev = components.device
+        gen_kw = dict(height=res, width=res, num_inference_steps=train_steps,
+                      sampler=train_sampler, cfg_interval=cfg_interval,
+                      verbose=verbose)
         for start in range(0, len(missing), block_size):
             idxs = missing[start:start + block_size]
             block = [requests[i] for i in idxs]
@@ -163,10 +238,20 @@ def compute_zs_for_requests(
             sync = torch.cuda.synchronize if dev.type == "cuda" else (
                 lambda: None)
             t0 = time.time()
-            mean, logvar = training_latents_for_requests(
-                components, block, hparams, height=res, width=res,
-                num_inference_steps=train_steps, sampler=train_sampler,
-                cfg_interval=cfg_interval, verbose=verbose)
+            dest_img_emb = tia_w = None
+            if tia_active:
+                flags = [bool(r.get("txt_img_align")) for r in block]
+                mean, logvar, imgs = training_latents_for_requests(
+                    components, block, hparams, use_dest_prompts=flags,
+                    return_images=True, **gen_kw)
+                dest_img_emb = _image_embeddings(clip_align, imgs,
+                                                 len(block),
+                                                 len(block[0]["prompts"]))
+                tia_w = np.asarray(flags[:len(idxs)] + [False] * pad,
+                                   np.float32)
+            else:
+                mean, logvar = training_latents_for_requests(
+                    components, block, hparams, **gen_kw)
             sync()
             t1 = time.time()
             arrays, _, _ = prepare_concept_batch(components.tokenizer, block,
@@ -175,7 +260,8 @@ def compute_zs_for_requests(
             arrays["latents_logvar"] = logvar
             batch = concept_batch_to_device(arrays, dev)
             gen = torch.Generator(device=dev).manual_seed(rng_seed + start)
-            zs, _, _, losses = optz.run(batch, gen)
+            zs, _, _, losses = optz.run(batch, gen, dest_img_emb=dest_img_emb,
+                                        tia_weight=tia_w)
             zs = zs.cpu().numpy()[: len(idxs)]
             t2 = time.time()
             if timings is not None:
@@ -212,6 +298,7 @@ def apply_emcid(
     num_inference_steps: int = 50,
     mesh=None,
     clip_align=None,
+    fim_dir="data/fim_stats",
     train_sampler: str = "dpm++",
     train_steps: Optional[int] = None,
     eps_dest_pool: Optional[int] = None,
@@ -224,12 +311,13 @@ def apply_emcid(
 ) -> Tuple[SDComponents, Dict]:
     """Full two-stage edit of a pipeline's text encoder -> (edited
     components, deltas).  ``timings`` (when given) collects the seconds of
-    each phase: "covariances", "generation", "stage1", "stage2"."""
-    if mesh is not None:
-        raise NotImplementedError("mesh= sharding (ROADMAP M14)")
-    if clip_align is not None:
-        raise NotImplementedError("txt-img-align (ROADMAP M9)")
-    check_supported(hparams)
+    each phase: "covariances", "generation", "stage1", "stage2", and "fim",
+    "sld" and "uce" when those run.  ``use_ewc`` resolves the Fisher diagonal
+    from the last edited layer's covariance (npz cache under ``fim_dir``,
+    else computed and cached); ``add_uce_edit`` follows Stage 2 with the
+    UCE edit of the UNet's cross-attention for the same concepts (dest
+    " " where a request has none)."""
+    check_supported(hparams, mesh)
     timings = {} if timings is None else timings
     dev = components.device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
@@ -239,13 +327,20 @@ def apply_emcid(
         stats_dir=stats_dir, captions=stats_captions, verbose=verbose)
     sync()
     timings["covariances"] = time.time() - t0
+    fim = None
+    if getattr(hparams, "use_ewc", False):
+        t = time.time()
+        fim = resolve_fim(components, hparams, cov=covs[-1], fim_dir=fim_dir,
+                          verbose=verbose)
+        sync()
+        timings["fim"] = time.time() - t
     zs = compute_zs_for_requests(
         components, requests, hparams, cache_name=cache_name,
         block_size=block_size, num_inference_steps=num_inference_steps,
-        train_sampler=train_sampler, train_steps=train_steps,
-        eps_dest_pool=eps_dest_pool, z_sched=z_sched,
-        cfg_interval=cfg_interval, train_res=train_res, rng_seed=rng_seed,
-        timings=timings, verbose=verbose)
+        fim=fim, clip_align=clip_align, train_sampler=train_sampler,
+        train_steps=train_steps, eps_dest_pool=eps_dest_pool,
+        z_sched=z_sched, cfg_interval=cfg_interval, train_res=train_res,
+        rng_seed=rng_seed, timings=timings, verbose=verbose)
     t1 = time.time()
     deltas, new_text = execute_emcid_text_encoder(
         components.text_encoder, components.tokenizer, requests, hparams,
@@ -253,7 +348,18 @@ def apply_emcid(
         solve_method=solve_method, verbose=verbose)
     sync()
     timings["stage2"] = time.time() - t1
+    edited = components.replace_text_encoder(new_text)
+    if getattr(hparams, "add_uce_edit", False):
+        from emcid_torch.engine.uce import edit_model_uce
+
+        t = time.time()
+        edited = edit_model_uce(edited, [r["source"] for r in requests],
+                                [r.get("dest") or " " for r in requests])
+        sync()
+        timings["uce"] = time.time() - t
+        if verbose:
+            print("applied UCE cross-attn hybrid edit")
     if verbose:
         print(f"Edited {len(requests)} concept(s) across layers "
               f"{list(hparams.layers)} in {time.time() - t0:.1f}s")
-    return components.replace_text_encoder(new_text), deltas
+    return edited, deltas

@@ -30,7 +30,8 @@ from emcid_torch.models.scheduler import (
 @dataclass
 class SDComponents:
     """The models of one Stable Diffusion pipeline (weights live in the
-    modules; an edit returns new components with a new text encoder)."""
+    modules; an edit returns new components with a new text encoder or
+    UNet)."""
 
     tokenizer: Any
     text_encoder: torch.nn.Module  # CLIPTextEncoder
@@ -51,6 +52,9 @@ class SDComponents:
 
     def replace_text_encoder(self, text_encoder) -> "SDComponents":
         return dataclasses.replace(self, text_encoder=text_encoder)
+
+    def replace_unet(self, unet) -> "SDComponents":
+        return dataclasses.replace(self, unet=unet)
 
 
 def tokenize(components: SDComponents, prompts: Sequence[str],

@@ -12,8 +12,9 @@ Counterpart of ``emcid_tpu/ops/attention.py``.  All functions take
   forward for M < 256 keys, all beside one query tile; ``short_kv_route``
   picks its route (``mma``: bf16 at head dims 40 and 80 on the tensor
   cores; ``fma``: the rest on float FMAs).
-* ``attention`` — below ``EMCID_TPU_FLASH_MIN_SEQ`` tokens (default 1024)
-  the fused einsum/softmax short path; on CUDA tensors M >= 256 goes to the
+* ``attention`` — below ``EMCID_TPU_FLASH_MIN_SEQ`` tokens (default 1024),
+  or at every length under ``EMCID_TPU_NO_FLASH=1``, the fused
+  einsum/softmax short path; on CUDA tensors M >= 256 goes to the
   flash-v2 kernels (K1-K3) and M < 256 to K4; on the CPU to
   ``mha_chunked``.  The routing is by M alone (the JAX package's
   ``EMCID_TPU_ATTN`` TPU tuning switch is not ported).
@@ -146,7 +147,8 @@ def _flash_min_seq() -> int:
 def attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
     N, M = q.shape[1], k.shape[1]
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    if max(N, M) < _flash_min_seq():
+    if (max(N, M) < _flash_min_seq()
+            or os.environ.get("EMCID_TPU_NO_FLASH") == "1"):
         return _block_attention(q, k, v, scale)
     if q.is_cuda:
         if M >= SHORT_KV_MAX:

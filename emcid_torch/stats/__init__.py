@@ -1,5 +1,6 @@
 from emcid_torch.stats.running import (
     CombinedStat,
+    Mean,
     SecondMoment,
     Stat,
     box_numpy_null,

@@ -1,13 +1,14 @@
 """Streaming second moments over datasets, with npz caching.
 
 Counterpart of ``emcid_tpu/stats/running.py`` (the parts the covariance
-pre-cache uses: ``SecondMoment``, ``CombinedStat``, ``tally`` and the npz
-codec).  The accumulate is a torch f32 matmul on the tensor's device,
+pre-cache and the EWC Fisher statistic use: ``SecondMoment``, ``Mean``,
+``CombinedStat``, ``tally`` and the npz codec).  The accumulate is a torch f32 matmul on the tensor's device,
 under ``precise_matmuls`` (no TF32).  The ``.npz`` state schema is the JAX
 package's and the reference's: keys ``count`` and ``mom2`` (prefixed
 ``mom2.`` inside a ``CombinedStat``), ``constructor``, the ``sample_size``
 check argument, and None stored NaN-boxed, so a cache written by either
-package loads in the other.
+package loads in the other.  ``Mean`` keeps the keys ``count``,
+``batchcount``, ``mean`` and ``data_shape``.
 """
 
 from __future__ import annotations
@@ -101,6 +102,69 @@ class SecondMoment(Stat):
     def load_state_dict(self, state):
         self.count = int(state["count"])
         self.mom2 = torch.as_tensor(np.asarray(state["mom2"]))
+
+
+def _load_data_shape(ds):
+    """None, a NaN-boxed null or an array -> a tuple or None."""
+    if ds is None:
+        return None
+    arr = np.atleast_1d(np.asarray(ds))
+    if arr.dtype.kind == "f" and np.isnan(arr).any():
+        return None
+    return tuple(int(d) for d in arr)
+
+
+class Mean(Stat):
+    """Running mean over the rows of (N, ...) batches (Chan's update), kept
+    on the host in the type of what is added."""
+
+    def __init__(self, state=None):
+        self.count = 0
+        self.batchcount = 0
+        self._mean = None
+        self.data_shape = None
+        super().__init__(state)
+
+    def add(self, a):
+        a = _to_np(a)
+        if a.ndim == 1:
+            a = a[:, None]
+        elif a.ndim != 2:
+            if self.data_shape is None:
+                self.data_shape = tuple(a.shape[1:])
+            a = a.reshape(a.shape[0], -1)
+        if a.shape[0] == 0:
+            return
+        batch_count = a.shape[0]
+        batch_mean = a.sum(0) / batch_count
+        self.batchcount += 1
+        if self._mean is None:
+            self.count = batch_count
+            self._mean = batch_mean
+            return
+        self.count += batch_count
+        frac = float(batch_count) / self.count
+        self._mean = self._mean + (batch_mean - self._mean) * frac
+
+    def size(self):
+        return self.count
+
+    def mean(self):
+        if self.data_shape is None or self._mean is None:
+            return self._mean
+        return self._mean.reshape(self._mean.shape[:-1]
+                                  + tuple(self.data_shape))
+
+    def state_dict(self):
+        return dict(constructor=self._constructor_name(), count=self.count,
+                    data_shape=self.data_shape and tuple(self.data_shape),
+                    batchcount=self.batchcount, mean=_to_np(self._mean))
+
+    def load_state_dict(self, state):
+        self.count = int(state["count"])
+        self.batchcount = int(state["batchcount"])
+        self._mean = np.asarray(state["mean"])
+        self.data_shape = _load_data_shape(state.get("data_shape"))
 
 
 class CombinedStat(Stat):
@@ -228,8 +292,9 @@ class FixedRandomSubsetSampler:
 
 
 def make_loader(dataset: Sequence, sample_size=None, random_sample=None,
-                batch_size=1) -> Iterable:
-    """Batches of ``dataset`` items; ``random_sample`` is the shuffle seed."""
+                batch_size=1, collate_fn=None) -> Iterable:
+    """Batches of ``dataset`` items (lists, or ``collate_fn`` of them);
+    ``random_sample`` is the shuffle seed."""
     n = len(dataset)
     if random_sample is not None:
         indices = FixedRandomSubsetSampler(n, sample_size,
@@ -240,7 +305,8 @@ def make_loader(dataset: Sequence, sample_size=None, random_sample=None,
 
     def batches():
         for i in range(0, len(indices), batch_size):
-            yield [dataset[j] for j in indices[i:i + batch_size]]
+            items = [dataset[j] for j in indices[i:i + batch_size]]
+            yield collate_fn(items) if collate_fn else items
 
     return batches()
 

@@ -221,18 +221,40 @@ def test_apply_emcid_tiny_cpu(pair, tmp_path):
         assert rel_diff(w.detach(), replayed[name]) <= 1e-6, name
 
 
-def test_unsupported_branches_raise(pair):
+@pytest.mark.parametrize("change", [
+    {"objective": "esd", "esd_mu": 1.0}, {"use_sampled_noise": True},
+    {"no_noise_loss": True}, {"align_object_token": True}])
+def test_variant_branches_run(pair, tmp_path, change):
+    """The Stage-1 variants the port once refused run through
+    ``apply_emcid``: finite deltas on the fc2 weights of the edited layers
+    only (parity with the JAX package: ``tests/test_torch_variants.py``)."""
     import dataclasses
 
     import emcid_torch.hparams as thp
     from emcid_torch.engine.editor import apply_emcid
 
     _, pc = pair
+    hp = dataclasses.replace(_hparams(thp, steps=2), **change)
+    edited, deltas = apply_emcid(pc, REQUESTS, hp, stats_dir=tmp_path,
+                                 num_inference_steps=2, verbose=False)
+    assert all(np.isfinite(a).all() and np.isfinite(r).all()
+               for a, r in deltas.values())
+    assert set(deltas) == {f"text_model.encoder.layers.{i}.mlp.fc2.weight"
+                           for i in hp.layers}
+    before = dict(pc.text_encoder.named_parameters())
+    assert {k for k, v in edited.text_encoder.named_parameters()
+            if not torch.equal(v, before[k])} == set(deltas)
+
+
+def test_unsupported_branches_raise(pair):
+    """What still waits raises: ``mesh=`` sharding (ROADMAP M14)."""
+    import emcid_torch.hparams as thp
+    from emcid_torch.engine.editor import apply_emcid, compute_zs_for_requests
+
+    _, pc = pair
     hp = _hparams(thp)
-    for change in ({"use_ewc": True}, {"add_uce_edit": True},
-                   {"objective": "esd"}, {"use_sampled_noise": True}):
-        with pytest.raises(NotImplementedError):
-            apply_emcid(pc, REQUESTS, dataclasses.replace(hp, **change),
-                        verbose=False)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="mesh"):
         apply_emcid(pc, REQUESTS, hp, mesh=object(), verbose=False)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        compute_zs_for_requests(pc, REQUESTS, hp, mesh=object(),
+                                verbose=False)
