@@ -13,7 +13,13 @@ Phases, each printing one JSON line:
    shapes; the norm kernels also through their autograd.Function against
    autograd of the plain math), and the kernel's, the plain version's and
    one library call's time beside the least time the card could take
-   (``bound_ms``);
+   (``bound_ms``).  Each row names the route it took; the norm backwards
+   (K5b ``resident``/``stream``, K6b ``rows``/``generic``) run at the
+   generation batch and at the Stage-1 backward's own shapes, must take
+   the route their shape calls for, and must give the same bits (dx,
+   dgamma, dbeta) in two calls on the same inputs; each timed one is
+   also timed on its other route and beside ``torch.add(x, g)``, which
+   moves the same bytes;
 3. the main path: ``apply_emcid`` on the full-width SD-v1.4 pipeline
    (random weights from a seed) in bf16, 4 concepts in one block, with the
    launch count of every kernel (and of each route of K1-K4) during
@@ -35,13 +41,15 @@ Phases, each printing one JSON line:
    with its attention through the kernels (and, with
    ``EMCID_TPU_FUSED_GN`` at 1 or geo and ``EMCID_TPU_FUSED_LN=1``, its
    norms too) against the same UNet with the knobs off and every attention
-   on the plain path, for eps and for the gradient into the text context;
+   on the plain path, for eps and for the gradient into the text context
+   (with the knobs at 1, both routes of K5b and of K6b run);
 6. the CLI path: ``emcid_torch.cli.run_emcid`` with both norm knobs on, on
    a local HF-format checkpoint folder of the full-width pipeline (random
    f32 weights from seed 0): pre-edit generation, ``apply_emcid``,
-   post-edit generation, with the launch count of every kernel, phase
-   times and checks of what comes out (finite z and deltas, only fc2 of
-   the edited layers changed, 512x512 uint8 images written).
+   post-edit generation, with the launch count of every kernel (and
+   route), phase times and checks of what comes out (finite z and deltas,
+   only fc2 of the edited layers changed, 512x512 uint8 images written,
+   K5b's ``resident`` and K6b's ``rows`` route taken).
 
 Then the kernel table line (launches from the CLI path), the card's name
 and power limit, and, last, the device line the harness reads.
@@ -101,6 +109,10 @@ KNOBS = ("EMCID_TPU_FUSED_GN", "EMCID_TPU_FUSED_LN")
 # tensor cores, and no float-FMA route of any of them
 BF16_ROUTES = {"K1 flash_v2_fwd": ("mma", "d512"), "K2 flash_v2_dq": ("mma",),
                "K3 flash_v2_dkv": ("mma",), "K4 short_kv_fwd": ("mma",)}
+# the norm backwards' routes; with both knobs on, a bf16 run at 384/512 px
+# must take K5b's shared-memory-resident route and K6b's register rows
+NORM_ROUTES = {"K5b groupnorm_bwd": ("resident", "stream"),
+               "K6b layernorm_bwd": ("rows", "generic")}
 
 
 def routes_ok(routes, expect=BF16_ROUTES) -> bool:
@@ -217,6 +229,47 @@ def product_shape(N, dtype) -> bool:
     import torch
 
     return dtype == torch.bfloat16 and N >= 1024
+
+
+def norm_timed(dtype) -> bool:
+    """Timed norm rows: every bf16 shape (the generation batch and the
+    Stage-1 backward's shapes); the f32 shapes check edges only."""
+    import torch
+
+    return dtype == torch.bfloat16
+
+
+@contextlib.contextmanager
+def forced_route(module, picker: str, route: str):
+    """Make a norm backward's wrapper take ``route`` inside the scope (to
+    time the route its picker did not choose on the same inputs)."""
+    real = getattr(module, picker)
+    setattr(module, picker, lambda *args: route)
+    try:
+        yield
+    finally:
+        setattr(module, picker, real)
+
+
+def route_yardsticks(torch, row, module, picker, other, fn, x, gy):
+    """Beside a timed norm backward: the time of its other route on the same
+    inputs (``other``, the general route, which takes every shape; None
+    where the general route was taken), and of ``torch.add(x, g)``, which
+    moves the same bytes (x and g read once, one tensor of x's size
+    written) and so shows what this card reaches on that traffic."""
+    if other is not None:
+        with forced_route(module, picker, other):
+            row["other_route"], row["other_route_ms"] = other, cuda_ms(fn, 20)
+    out = torch.empty_like(x)
+    row["same_bytes_add_ms"] = cuda_ms(lambda: torch.add(x, gy, out=out), 20)
+
+
+def same_bits(torch, name, first, again, shape, failures) -> bool:
+    """Two calls on the same inputs must give the same bits."""
+    ok = all(torch.equal(a, b) for a, b in zip(first, again))
+    if not ok:
+        failures.append(f"{name} at {shape}: two calls differ")
+    return ok
 
 
 def check(name, got, ref, dtype, shape, failures):
@@ -426,12 +479,19 @@ def phase_groupnorm(torch, shapes, failures):
 
     f32 = torch.float32
     rows = []
-    for (B, S, C, G, eps), dtype in shapes:
+    for (B, S, C, G, eps), dtype, expect in shapes:
         for act in ("silu", "none"):
             x, gy, sc, bi = norm_inputs(torch, (B, C, S), C, dtype, seed=7)
             y, st = gn.gn_fwd(x, sc, bi, G, eps, act)
             y_ref, st_ref = gn.gn_fwd_plain(x, sc, bi, G, eps, act)
             dx, dsc, dbi = gn.gn_bwd(x, gy, sc, bi, st, G, act)
+            route = gn.gn_bwd_route(x, G, gy)
+            if route != expect:
+                failures.append(f"K5b at {[B, S, C]} {dtype}: route {route}, "
+                                f"expected {expect}")
+            same = same_bits(torch, "K5b", (dx, dsc, dbi),
+                             gn.gn_bwd(x, gy, sc, bi, st, G, act), [B, S, C],
+                             failures)
             dx_ref, dsc_ref, dbi_ref = gn.gn_bwd_plain(x, gy, sc, bi, st_ref,
                                                        G, act)
             auto = autograd_pairs(
@@ -448,16 +508,19 @@ def phase_groupnorm(torch, shapes, failures):
                                ("stats", st, st_ref, f32)]
                 + [(l, a, r, dtype) for l, a, r in auto[:1]],
                 dtype, shape, failures)
+            # dscale/dbias come out in the parameters' type (bf16 here
+            # for bf16 activations), so they are held at its tolerance
             be, brel, bok = norm_checks(
                 torch, "K5b", [("dx", dx, dx_ref, dtype),
-                               ("dscale", dsc, dsc_ref, f32),
-                               ("dbias", dbi, dbi_ref, f32)]
+                               ("dscale", dsc, dsc_ref, sc.dtype),
+                               ("dbias", dbi, dbi_ref, bi.dtype)]
                 + [(l, a, r, dtype) for l, a, r in auto[1:]],
                 dtype, shape, failures)
             k5f = dict(common, kernel="K5f groupnorm_fwd", max_abs_err=fe,
                        rel_err=frel, ok=fok)
-            k5b = dict(common, kernel="K5b groupnorm_bwd", max_abs_err=be,
-                       rel_err=brel, ok=bok)
+            k5b = dict(common, kernel="K5b groupnorm_bwd", route=route,
+                       max_abs_err=be, rel_err=brel, same_bits=same,
+                       ok=bok and same and route == expect)
             if act == "none" and dtype == f32:
                 # ROADMAP F2: each group's dx sums to 0 in exact arithmetic
                 d = dx.double().reshape(B, G, -1)
@@ -466,18 +529,22 @@ def phase_groupnorm(torch, shapes, failures):
                 if f2 >= 1e-4:
                     k5b["ok"] = False
                     failures.append(f"K5b F2 group sum {f2:.3g} at {shape}")
-            if product_shape(S, dtype):
+            if norm_timed(dtype):
                 elem, n = x.element_size(), x.numel()
                 params = 2 * C * sc.element_size() + B * 2 * G * 4
                 flops = (9.0 if act == "silu" else 5.0) * n
                 k5f["bound_ms"], k5f["bound_by"] = bound(
                     flops, 2.0 * n * elem + params, f32)
                 k5b["bound_ms"], k5b["bound_by"] = bound(
-                    2 * flops, 3.0 * n * elem + params + 2 * C * 4, f32)
+                    2 * flops, 3.0 * n * elem + 2 * params, f32)
                 k5f["kernel_ms"] = cuda_ms(
                     lambda: gn.gn_fwd(x, sc, bi, G, eps, act), 20)
                 k5b["kernel_ms"] = cuda_ms(
                     lambda: gn.gn_bwd(x, gy, sc, bi, st, G, act), 20)
+                route_yardsticks(
+                    torch, k5b, gn, "gn_bwd_route",
+                    "stream" if route == "resident" else None,
+                    lambda: gn.gn_bwd(x, gy, sc, bi, st, G, act), x, gy)
                 k5f["plain_ms"] = cuda_ms(
                     lambda: gn.gn_fwd_plain(x, sc, bi, G, eps, act), 5)
                 k5b["plain_ms"] = cuda_ms(
@@ -511,12 +578,19 @@ def phase_layernorm(torch, shapes, failures):
     f32 = torch.float32
     rows = []
     eps = 1e-5
-    for (B, N, C), dtype in shapes:
+    for (B, N, C), dtype, expect in shapes:
         for act in ("none", "silu"):
             x, gy, sc, bi = norm_inputs(torch, (B, N, C), C, dtype, seed=8)
             y = ln.ln_fwd(x, sc, bi, eps, act)
             y_ref = ln.ln_act_plain(x, sc, bi, eps=eps, act=act)
             dx, dsc, dbi = ln.ln_bwd(x, gy, sc, bi, eps, act)
+            route = ln.ln_bwd_route(x, gy)
+            if route != expect:
+                failures.append(f"K6b at {[B, N, C]} {dtype}: route {route}, "
+                                f"expected {expect}")
+            same = same_bits(torch, "K6b", (dx, dsc, dbi),
+                             ln.ln_bwd(x, gy, sc, bi, eps, act), [B, N, C],
+                             failures)
             dx_ref, dsc_ref, dbi_ref = ln.ln_bwd_plain(x, gy, sc, bi, eps, act)
             auto = autograd_pairs(
                 torch, lambda x, s, b: ln.layer_norm_act(x, s, b, eps=eps,
@@ -532,26 +606,31 @@ def phase_layernorm(torch, shapes, failures):
                 dtype, shape, failures)
             be, brel, bok = norm_checks(
                 torch, "K6b", [("dx", dx, dx_ref, dtype),
-                               ("dscale", dsc, dsc_ref, f32),
-                               ("dbias", dbi, dbi_ref, f32)]
+                               ("dscale", dsc, dsc_ref, sc.dtype),
+                               ("dbias", dbi, dbi_ref, bi.dtype)]
                 + [(l, a, r, dtype) for l, a, r in auto[1:]],
                 dtype, shape, failures)
             k6f = dict(common, kernel="K6f layernorm_fwd", max_abs_err=fe,
                        rel_err=frel, ok=fok)
-            k6b = dict(common, kernel="K6b layernorm_bwd", max_abs_err=be,
-                       rel_err=brel, ok=bok)
-            if product_shape(N, dtype):
+            k6b = dict(common, kernel="K6b layernorm_bwd", route=route,
+                       max_abs_err=be, rel_err=brel, same_bits=same,
+                       ok=bok and same and route == expect)
+            if norm_timed(dtype):
                 elem, n = x.element_size(), x.numel()
                 params = 2 * C * sc.element_size()
                 flops = (9.0 if act == "silu" else 5.0) * n
                 k6f["bound_ms"], k6f["bound_by"] = bound(
                     flops, 2.0 * n * elem + params, f32)
                 k6b["bound_ms"], k6b["bound_by"] = bound(
-                    2 * flops, 3.0 * n * elem + params + 2 * C * 4, f32)
+                    2 * flops, 3.0 * n * elem + 2 * params, f32)
                 k6f["kernel_ms"] = cuda_ms(
                     lambda: ln.ln_fwd(x, sc, bi, eps, act), 20)
                 k6b["kernel_ms"] = cuda_ms(
                     lambda: ln.ln_bwd(x, gy, sc, bi, eps, act), 20)
+                route_yardsticks(
+                    torch, k6b, ln, "ln_bwd_route",
+                    "generic" if route == "rows" else None,
+                    lambda: ln.ln_bwd(x, gy, sc, bi, eps, act), x, gy)
                 k6f["plain_ms"] = cuda_ms(
                     lambda: ln.ln_act_plain(x, sc, bi, eps=eps, act=act), 5)
                 k6b["plain_ms"] = cuda_ms(
@@ -607,16 +686,31 @@ def kernel_phases(torch, failures):
         ((2, 300, 77, 2, 40), f32), ((2, 300, 77, 2, 40), bf),
         ((2, 300, 200, 2, 40), bf), ((24, 2304, 77, 8, 40), bf),
         ((4, 4096, 77, 8, 40), bf), ((4, 1024, 77, 8, 80), bf)], failures)
-    # (B, S, C, G, eps): the level-0 resnet norm of training-image
-    # generation, a level-1 up-path concat in Stage 1, the mid-block
-    # Transformer2D norm, then ragged f32 shapes
+    # (B, S, C, G, eps), dtype, K5b's route: the level-0 resnet norm of
+    # training-image generation (CFG batch 24); the Stage-1 backward's
+    # level-0 norms over 320 and 640 channels and the up-path concat over
+    # 960 (batch 12, 384 px); the 512-px level-0 norm of the CLI's renders;
+    # the mid-block Transformer2D norm; then f32: ragged shapes and the
+    # model check's 320- and 640-channel spans (F2 on both routes)
     rows += phase_groupnorm(torch, [
-        ((24, 2304, 320, 32, 1e-5), bf), ((12, 2304, 960, 32, 1e-5), bf),
-        ((12, 36, 2560, 32, 1e-6), bf), ((2, 300, 64, 32, 1e-5), f32),
-        ((2, 7, 96, 32, 1e-6), f32)], failures)
+        ((24, 2304, 320, 32, 1e-5), bf, "resident"),
+        ((12, 2304, 320, 32, 1e-5), bf, "resident"),
+        ((12, 2304, 640, 32, 1e-5), bf, "resident"),
+        ((12, 2304, 960, 32, 1e-5), bf, "stream"),
+        ((4, 4096, 320, 32, 1e-5), bf, "resident"),
+        ((12, 36, 2560, 32, 1e-6), bf, "resident"),
+        ((2, 300, 64, 32, 1e-5), f32, "resident"),
+        ((2, 7, 96, 32, 1e-6), f32, "stream"),
+        ((2, 2304, 320, 32, 1e-5), f32, "resident"),
+        ((2, 2304, 640, 32, 1e-5), f32, "stream")], failures)
+    # (B, N, C), dtype, K6b's route: the level-0 transformer of generation;
+    # the Stage-1 backward's levels 0 and 1; level 2; then f32 edges (C =
+    # 1280 in f32 takes the generic route)
     rows += phase_layernorm(torch, [
-        ((24, 2304, 320), bf), ((12, 144, 1280), bf), ((2, 77, 64), f32),
-        ((3, 5, 3000), f32)], failures)
+        ((24, 2304, 320), bf, "rows"), ((12, 2304, 320), bf, "rows"),
+        ((12, 576, 640), bf, "rows"), ((12, 144, 1280), bf, "rows"),
+        ((2, 77, 64), f32, "rows"), ((2, 77, 1280), f32, "generic"),
+        ((3, 5, 3000), f32, "generic")], failures)
     return rows
 
 
@@ -926,6 +1020,7 @@ def model_check(torch, unet, failures, gn="0", ln="0"):
             _build.reset_launches()
             eps_k, grad_k = eps_and_grad()
             launches = dict(_build.LAUNCHES)
+            routes = {k: dict(_build.ROUTES[k]) for k in NORM_ROUTES}
         # every attention on the plain path, the stock norms
         with environ(EMCID_TPU_NO_FLASH="1", **dict.fromkeys(KNOBS)):
             eps_p, grad_p = eps_and_grad()
@@ -936,9 +1031,13 @@ def model_check(torch, unet, failures, gn="0", ln="0"):
                "kernels vs plain attention and stock norms",
                EMCID_TPU_FUSED_GN=gn, EMCID_TPU_FUSED_LN=ln,
                eps_rel_err=eps_rel, ctx_grad_rel_err=grad_rel,
-               tolerance=MODEL_TOL, launches=launches)
+               tolerance=MODEL_TOL, launches=launches, norm_routes=routes)
+    # with the knobs at 1 the f32 spans of 320 channels take K5b's resident
+    # route and those of 640 its stream route; K6b takes rows at 320 and
+    # 640 channels and generic at 1280
+    both = gn != "1" or all(n > 0 for r in routes.values() for n in r.values())
     row["ok"] = (eps_rel <= MODEL_TOL and grad_rel <= MODEL_TOL
-                 and all(launches[k] > 0 for k in expect)
+                 and all(launches[k] > 0 for k in expect) and both
                  and bool(torch.isfinite(eps_k).all()))
     emit(row)
     if not row["ok"]:
@@ -1107,10 +1206,12 @@ def cli_path(torch, failures):
         changed_params=changed, only_fc2_of_edit_layers=changed == expect,
         images={k: [list(a.shape) for a in v] for k, v in images.items()},
         images_uint8_512=images_ok)
+    row["norm_routes_ok"] = (routes["K5b groupnorm_bwd"]["resident"] > 0
+                             and routes["K6b layernorm_bwd"]["rows"] > 0)
     row["ok"] = (row["z_finite"] and row["deltas_finite"]
                  and row["only_fc2_of_edit_layers"] and images_ok
                  and all(launches[k] > 0 for k in SOURCES)
-                 and row["bf16_routes_ok"])
+                 and row["bf16_routes_ok"] and row["norm_routes_ok"])
     emit(row)
     if not row["ok"]:
         failures.append(f"CLI path: {row}")

@@ -130,4 +130,138 @@ inline int pick_vec(int n, const void* const* ptrs, int nptrs) {
   return 1;
 }
 
+// cudaFuncSetAttribute(MaxDynamicSharedMemorySize) for `kernel`, only when
+// `bytes` is more than was allowed before on the current device (`allowed`:
+// the caller's static record, one entry per device), so that launches after
+// the first make no attribute call for it.
+constexpr int kMaxDevices = 16;
+
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t (&allowed)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && bytes <= allowed[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) allowed[dev] = bytes;
+  return err;
+}
+
+inline bool aligned16(const void* const* ptrs, int nptrs) {
+  for (int i = 0; i < nptrs; ++i)
+    if (reinterpret_cast<size_t>(ptrs[i]) % 16) return false;
+  return true;
+}
+
+// ---- the in-kernel dgamma/dbeta fold of the norm backwards ----
+//
+// Every block of a backward writes its float32 partial sums of dgamma and
+// dbeta as rows of 2 C floats ([dgamma | dbeta]) into a scratch buffer the
+// caller allocates; the block that finishes last sums the rows in row
+// order and writes dgamma and dbeta in the parameters' type.  Blocks count
+// themselves on int counters in device memory that are 0 before the launch
+// and that the last blocks set back to 0, so the next launch on the stream
+// finds them so; two backwards running at once on two streams would need
+// two sets of counters.  The sums are taken in a fixed order, so the
+// results are the same bits on every run.
+
+__device__ __forceinline__ void stparam(void* p, int pbf16, int i, float v) {
+  if (pbf16)
+    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v);
+  else
+    static_cast<float*>(p)[i] = v;
+}
+
+// Called by every thread of each of `total` blocks after it wrote its
+// partial sums; true in the last block to arrive (in all its threads), which
+// may then read every block's sums.  The barrier orders the block's writes
+// before thread 0's release fence and count (as CUTLASS's split-K
+// semaphore does), so the other threads need no fence of their own.
+__device__ __forceinline__ bool arrive_last(unsigned* counter, unsigned total) {
+  __shared__ int last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(counter, 1u) == total - 1;
+    if (last) __threadfence();
+  }
+  __syncthreads();
+  return last;
+}
+
+__device__ __forceinline__ void fold_out(float* dst, void* dgamma, void* dbeta, int pbf16, int C,
+                                         int i, float v) {
+  if (dgamma == nullptr)
+    dst[i] = v;
+  else if (i < C)
+    stparam(dgamma, pbf16, i, v);
+  else
+    stparam(dbeta, pbf16, i - C, v);
+}
+
+// dst[i] = sum over r < R, in order, of src[r * n + i], for i < n; src is
+// read past L1 (the rows were written by other SMs), 16 bytes at a time
+// where n % 4 == 0, eight rows in flight per thread (few registers: they
+// count against every block of the kernel, and only one block folds).
+// With dgamma set, the sums go out as the parameters' type: i < n / 2 to
+// dgamma, the rest to dbeta.
+__device__ __forceinline__ void fold_rows(const float* src, int R, int n, float* dst,
+                                          void* dgamma = nullptr, void* dbeta = nullptr,
+                                          int pbf16 = 0) {
+  const int C = n / 2;
+  if (n % 4) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      float s = 0.f;
+#pragma unroll 8
+      for (int r = 0; r < R; ++r) s += __ldcg(src + (size_t)r * n + i);
+      fold_out(dst, dgamma, dbeta, pbf16, C, i, s);
+    }
+    return;
+  }
+  const int q = n / 4;
+  const float4* s4 = reinterpret_cast<const float4*>(src);
+  for (int i = threadIdx.x; i < q; i += blockDim.x) {
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r0 = 0; r0 < R; r0 += 8) {
+      float4 v[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        v[k] = r0 + k < R ? __ldcg(s4 + (size_t)(r0 + k) * q + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) a.x += v[k].x, a.y += v[k].y, a.z += v[k].z, a.w += v[k].w;
+    }
+    fold_out(dst, dgamma, dbeta, pbf16, C, 4 * i, a.x);
+    fold_out(dst, dgamma, dbeta, pbf16, C, 4 * i + 1, a.y);
+    fold_out(dst, dgamma, dbeta, pbf16, C, 4 * i + 2, a.z);
+    fold_out(dst, dgamma, dbeta, pbf16, C, 4 * i + 3, a.w);
+  }
+}
+
+// Blocks per fold group when `parts` blocks write partial rows: about the
+// square root, so that neither fold below reads more than ~sqrt(parts)
+// rows.
+__host__ __device__ inline int fold_group_size(int parts) {
+  int gs = 1;
+  while (gs * gs < parts) ++gs;
+  return gs;
+}
+
+// Two-level fold for a grid of `parts` blocks, each of which wrote row
+// blockIdx.x of `part` ((parts + groups, 2 C) floats): the last block of
+// each group of fold_group_size(parts) consecutive blocks sums its group's
+// rows into row parts + group; the last of those sums the group rows into
+// dgamma/dbeta.  counters: 1 + groups ints (the groups' and then the
+// whole grid's count).
+__device__ __forceinline__ void fold_blocks(float* part, unsigned* counters, int parts, int C,
+                                            void* dgamma, void* dbeta, int pbf16) {
+  const int gs = fold_group_size(parts), groups = (parts + gs - 1) / gs, n = 2 * C;
+  const int grp = blockIdx.x / gs, members = min(gs, parts - grp * gs);
+  if (!arrive_last(counters + 1 + grp, members)) return;
+  fold_rows(part + (size_t)grp * gs * n, members, n, part + (size_t)(parts + grp) * n);
+  if (threadIdx.x == 0) counters[1 + grp] = 0;
+  if (!arrive_last(counters, groups)) return;
+  fold_rows(part + (size_t)parts * n, groups, n, nullptr, dgamma, dbeta, pbf16);
+  if (threadIdx.x == 0) counters[0] = 0;
+}
+
 }  // namespace emcid

@@ -9,14 +9,15 @@ Nothing is built at import: the first kernel launch builds.
 
 Every wrapper that launches a kernel adds one to its entry in ``LAUNCHES``
 right after the launch, so a run can show which kernels it went through.
-K1-K4 have several routes (one C entry point each, picked in Python);
-their launches are also counted per route in ``ROUTES``.
+K1-K4, K5b and K6b have several routes (one C entry point each, picked in
+Python); their launches are also counted per route in ``ROUTES``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -40,9 +41,16 @@ ROUTES: Dict[str, Dict[str, int]] = {
     "K2 flash_v2_dq": {"mma": 0, "fma": 0},
     "K3 flash_v2_dkv": {"mma": 0, "fma": 0},
     "K4 short_kv_fwd": {"mma": 0, "fma": 0},
+    "K5b groupnorm_bwd": {"resident": 0, "stream": 0},
+    "K6b layernorm_bwd": {"rows": 0, "generic": 0},
 }
+# int32 counters of the norm backwards' in-kernel fold (csrc/common.cuh),
+# per device
+FOLD_COUNTERS = 64
 
 _lib: Optional[ctypes.CDLL] = None
+_sms: Dict[int, int] = {}
+_counters: Dict[int, torch.Tensor] = {}
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
@@ -66,16 +74,16 @@ _SIGNATURES = {
     "emcid_short_kv_fwd_mma": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
     # x, gamma, beta, y, stats, B, C, S, G, eps, act, dtype, pdtype, stream
     "emcid_gn_fwd": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _I, _P],
-    # x, g, gamma, beta, stats, dx, dgamma, dbeta, B, C, S, G, act, dtype,
-    # pdtype, stream
-    "emcid_gn_bwd": [_P] * 8 + [_I] * 7 + [_P],
+    # x, g, gamma, beta, stats, dx, dgamma, dbeta, part, counters, B, C, S,
+    # G, act, dtype, pdtype, stream: K5b's resident and stream routes
+    "emcid_gn_bwd_resident": [_P] * 10 + [_I] * 7 + [_P],
+    "emcid_gn_bwd": [_P] * 10 + [_I] * 7 + [_P],
     # x, gamma, beta, y, rows, C, eps, act, dtype, pdtype, stream
     "emcid_ln_fwd": [_P] * 4 + [_L, _I, _F, _I, _I, _I, _P],
-    # rows, C -> the backward's block count (not a launch)
-    "emcid_ln_bwd_blocks": [_L, _I],
-    # x, g, gamma, beta, dx, dgamma, dbeta, rows, C, eps, act, nblocks,
-    # dtype, pdtype, stream
-    "emcid_ln_bwd": [_P] * 7 + [_L, _I, _F, _I, _I, _I, _I, _P],
+    # x, g, gamma, beta, dx, dgamma, dbeta, part, counters, rows, C, eps,
+    # act, nblocks, dtype, pdtype, stream: K6b's rows and generic routes
+    "emcid_ln_bwd_rows": [_P] * 9 + [_L, _I, _F, _I, _I, _I, _I, _P],
+    "emcid_ln_bwd": [_P] * 9 + [_L, _I, _F, _I, _I, _I, _I, _P],
 }
 
 
@@ -203,3 +211,33 @@ def aligned16(*tensors: torch.Tensor) -> bool:
 
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def sm_count(t: torch.Tensor) -> int:
+    """The SM count of the card ``t`` lies on, read once per device."""
+    idx = t.device.index
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]
+
+
+def fold_groups(parts: int) -> int:
+    """Groups of the two-level fold over ``parts`` blocks' partial rows
+    (``fold_group_size`` in ``csrc/common.cuh``: ceil(sqrt(parts)) blocks a
+    group)."""
+    size = math.isqrt(parts - 1) + 1
+    return -(-parts // size)
+
+
+def fold_counters(t: torch.Tensor, n: int) -> torch.Tensor:
+    """The fold counters of the device ``t`` lies on, zeroed once: every
+    backward leaves them at 0 again.  The port runs on one stream; two
+    backwards running at once on two streams would need a set each."""
+    if n > FOLD_COUNTERS:
+        raise ValueError(f"the fold needs {n} counters, more than "
+                         f"{FOLD_COUNTERS}")
+    idx = t.device.index
+    if idx not in _counters:
+        _counters[idx] = torch.zeros(FOLD_COUNTERS, dtype=torch.int32,
+                                     device=t.device)
+    return _counters[idx]

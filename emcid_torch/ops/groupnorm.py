@@ -8,9 +8,13 @@ kernels:
   (batch, group) span; returns y and the per-group (mean, rstd) as
   (B, 2, G) float32;
 * K5b ``gn_bwd`` — dx (the SiLU derivative and both group reductions) from
-  the saved statistics, with dgamma/dbeta summed over the batch here (the
-  kernel writes (B, C) partials; CUDA blocks have no order to carry a sum
-  across, as the TPU grid does).
+  the saved statistics, and dgamma/dbeta summed over the batch inside the
+  same launch (the last block to finish sums the blocks' (B, 2 C) partial
+  rows in order; CUDA blocks have no order to carry a sum across, as the
+  TPU grid does).  Two routes, one C entry point each, picked by
+  ``gn_bwd_route`` and counted in ``_build.ROUTES``: ``resident`` (the
+  span's x and g brought into shared memory once by TMA bulk copies) and
+  ``stream`` (spans larger than one block's shared memory).
 
 The math is flax/torch GroupNorm: contiguous channel groups, float32
 statistics, the fast variance max(E[x^2] - E[x]^2, 0), normalise and
@@ -119,12 +123,12 @@ def gn_bwd_plain(x, g, scale, bias, stats, num_groups: int,
 # ---------------------------------------------------------------------------
 
 
-def _check_params(name, x, *params):
+def _check_params(name, x, C, *params):
     for p in params:
         _build.dtype_code(p)
-        if p.device != x.device or not p.is_contiguous():
-            raise ValueError(f"{name}: scale/bias must be contiguous on "
-                             f"{x.device}")
+        if p.device != x.device or not p.is_contiguous() or p.numel() != C:
+            raise ValueError(f"{name}: scale/bias must be ({C},) contiguous "
+                             f"on {x.device}")
 
 
 def gn_fwd(x, scale, bias, num_groups: int, eps: float, act: str = "none"):
@@ -134,7 +138,7 @@ def gn_fwd(x, scale, bias, num_groups: int, eps: float, act: str = "none"):
     if x.device.type == "cpu":
         return gn_fwd_plain(x, scale, bias, num_groups, eps, act)
     _build.check_cuda_inputs("gn_fwd", x)
-    _check_params("gn_fwd", x, scale, bias)
+    _check_params("gn_fwd", x, C, scale, bias)
     y = torch.empty_like(x)
     stats = torch.empty((B, 2, num_groups), device=x.device,
                         dtype=torch.float32)
@@ -146,27 +150,66 @@ def gn_fwd(x, scale, bias, num_groups: int, eps: float, act: str = "none"):
     return y, stats
 
 
+GN_BWD_ENTRY = {"resident": "emcid_gn_bwd_resident", "stream": "emcid_gn_bwd"}
+_RES_CHUNK = 4096  # kGnResChunk: bytes of x (and of g) per barrier
+_RES_RESERVE = 1024  # kGnResReserve: the block's static shared memory
+_MAX_SMEM = 232448  # kMaxSmem: the most dynamic shared memory of a block
+
+
+def resident_smem(Cg: int, S: int, esize: int) -> int:
+    """Dynamic shared memory of the ``resident`` route for a span of Cg
+    channels of S elements of ``esize`` bytes (``gn_res_smem`` in
+    ``csrc/groupnorm.cu``): x and g, one 8-byte barrier per 4 KB of the
+    span (rounded up to 16 bytes), one float2 per unit of a channel's 32
+    accesses of V elements (the widest of at most 16 bytes dividing S)."""
+    v = 16 // esize
+    while S % v:
+        v //= 2
+    span = Cg * S * esize
+    bars = -(-8 * -(-span // _RES_CHUNK) // 16) * 16
+    return 2 * span + bars + 8 * Cg * -(-(S // v) // 32)
+
+
+def gn_bwd_route(x, num_groups: int, *tensors) -> str:
+    """K5b's route: ``"resident"`` for float32/bfloat16 spans of a multiple
+    of 16 bytes, with every tensor 16-byte aligned and the span's x and g
+    within one block's shared memory (bf16 at 384 px: 320 and 640 channels,
+    not 960; at 512 px: 320), else ``"stream"``."""
+    _, C, S = _dims(x, num_groups)
+    Cg, es = C // num_groups, x.element_size()
+    if (x.dtype in (torch.float32, torch.bfloat16) and Cg * S * es % 16 == 0
+            and _build.aligned16(x, *tensors)
+            and resident_smem(Cg, S, es) + _RES_RESERVE <= _MAX_SMEM):
+        return "resident"
+    return "stream"
+
+
 def gn_bwd(x, g, scale, bias, stats, num_groups: int, act: str = "none"):
-    """K5b: (dx like x, dscale (C,) f32, dbias (C,) f32)."""
+    """K5b: (dx like x, dscale (C,), dbias (C,)); the last two float32 on
+    a CPU tensor (the plain version), in the parameters' type from the
+    kernel, which sums them itself: one launch, nothing after it."""
     B, C, S = _dims(x, num_groups)
     a = _act_code(act)
     if x.device.type == "cpu":
         return gn_bwd_plain(x, g, scale, bias, stats, num_groups, act)
     _build.check_cuda_inputs("gn_bwd", x, g)
-    _check_params("gn_bwd", x, scale, bias)
+    _check_params("gn_bwd", x, C, scale, bias)
     if (stats.dtype != torch.float32 or not stats.is_contiguous()
             or tuple(stats.shape) != (B, 2, num_groups)):
         raise ValueError("gn_bwd: stats must be contiguous f32 (B, 2, G)")
+    route = gn_bwd_route(x, num_groups, g)
     dx = torch.empty_like(x)
-    dscale = torch.empty((B, C), device=x.device, dtype=torch.float32)
-    dbias = torch.empty_like(dscale)
-    _build.run("K5b groupnorm_bwd", "emcid_gn_bwd",
+    dscale = torch.empty(C, device=x.device, dtype=scale.dtype)
+    dbias = torch.empty(C, device=x.device, dtype=bias.dtype)
+    part = torch.empty(B * 2 * C, device=x.device, dtype=torch.float32)
+    _build.run("K5b groupnorm_bwd", GN_BWD_ENTRY[route],
                x.data_ptr(), g.data_ptr(), scale.data_ptr(), bias.data_ptr(),
                stats.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
-               dbias.data_ptr(), B, C, S, num_groups, a,
+               dbias.data_ptr(), part.data_ptr(),
+               _build.fold_counters(x, 1).data_ptr(), B, C, S, num_groups, a,
                _build.dtype_code(x), _build.dtype_code(scale),
-               _build.stream_ptr(x))
-    return dx, dscale.sum(0), dbias.sum(0)
+               _build.stream_ptr(x), route=route)
+    return dx, dscale, dbias
 
 
 class GroupNormAct(torch.autograd.Function):
@@ -185,8 +228,9 @@ class GroupNormAct(torch.autograd.Function):
         x, scale, bias, stats = ctx.saved_tensors
         dx, dscale, dbias = gn_bwd(x, g.contiguous(), scale, bias, stats,
                                    ctx.num_groups, ctx.act)
-        return (dx, dscale.to(scale.dtype), dbias.to(bias.dtype), None, None,
-                None)
+        if not x.is_cuda:  # the plain version's float32 sums
+            dscale, dbias = dscale.to(scale.dtype), dbias.to(bias.dtype)
+        return dx, dscale, dbias, None, None, None
 
 
 def gn_act(x, scale, bias, num_groups: int, eps: float,

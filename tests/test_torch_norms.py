@@ -6,7 +6,9 @@ tiny UNet against the JAX tiny UNet under the same knobs, and the dispatch.
 
 The CUDA kernels run only on the card (``chip_smoke.py`` holds them
 against these plain versions there); on CPU tensors the wrappers compute
-the plain versions and launch nothing.  Tolerances: f32 on both sides,
+the plain versions and launch nothing.  The backwards' route pickers
+(K5b ``resident``/``stream``, K6b ``rows``/``generic``) are pure Python on
+shapes, dtypes and alignment, so they are held here at the UNet's shapes.  Tolerances: f32 on both sides,
 differing only in summation order, so 1e-5 of the largest reference value
 for one norm and 1e-4 through the whole tiny UNet (as
 ``test_torch_models``).
@@ -52,7 +54,10 @@ def _nhwc(t):
     return t.permute(0, *range(2, t.dim()), 1).detach().numpy()
 
 
-GN_SHAPES = [(2, 8, 8, 64), (2, 12, 12, 320), (1, 6, 6, 2560)]
+# channels per group 2, 10 (the 320-channel spans), 80, then 20 and 30
+# (the 640- and 960-channel spans: resident and stream at 384 px)
+GN_SHAPES = [(2, 8, 8, 64), (2, 12, 12, 320), (1, 6, 6, 2560),
+             (1, 8, 8, 640), (1, 8, 8, 960)]
 
 
 @pytest.mark.parametrize("act", ["none", "silu"])
@@ -101,7 +106,9 @@ def test_groupnorm_plain_group_sums_vanish():
     assert (dg.sum(-1).abs() / dg.abs().sum(-1)).max() < 1e-4
 
 
-LN_SHAPES = [(2, 64, 320), (2, 77, 64), (1, 144, 1280)]
+# the rows route's classes (320 at 4-byte, 640 at 8-byte, 1280 at
+# 16-byte bf16 accesses) and a narrow row
+LN_SHAPES = [(2, 64, 320), (2, 77, 64), (1, 144, 1280), (2, 16, 640)]
 
 
 @pytest.mark.parametrize("act", ["none", "silu"])
@@ -250,3 +257,121 @@ def test_cpu_wrappers_launch_nothing():
     assert all(n == 0 for n in _build.LAUNCHES.values())
     assert set(_build.LAUNCHES) >= {"K5f groupnorm_fwd", "K5b groupnorm_bwd",
                                     "K6f layernorm_fwd", "K6b layernorm_bwd"}
+
+
+# (C, S, dtype, route) of K5b at G = 32: the UNet's bf16 spans at 384 px
+# (48x48) and 512 px (64x64) and deeper levels, the model check's f32
+# spans, and ragged f32 spans (a span of 84 bytes is not whole 16-byte
+# pieces)
+GN_ROUTES = [
+    (320, 2304, torch.bfloat16, "resident"),
+    (640, 2304, torch.bfloat16, "resident"),
+    (960, 2304, torch.bfloat16, "stream"),
+    (320, 4096, torch.bfloat16, "resident"),
+    (640, 4096, torch.bfloat16, "stream"),
+    (1280, 576, torch.bfloat16, "resident"),
+    (2560, 36, torch.bfloat16, "resident"),
+    (320, 2304, torch.float32, "resident"),
+    (640, 2304, torch.float32, "stream"),
+    (64, 300, torch.float32, "resident"),
+    (96, 7, torch.float32, "stream"),
+]
+
+
+@pytest.mark.parametrize("C,S,dtype,route", GN_ROUTES)
+def test_gn_bwd_route(C, S, dtype, route):
+    """``resident`` exactly where the span's x and g fit one block's
+    shared memory (and are whole 16-byte pieces), else ``stream``."""
+    x = torch.empty(2, C, S, dtype=dtype)
+    assert tgn.gn_bwd_route(x, 32, torch.empty_like(x)) == route
+
+
+# (rows shape, dtype, route) of K6b
+LN_ROUTES = [
+    ((12, 2304, 320), torch.bfloat16, "rows"),
+    ((12, 576, 640), torch.bfloat16, "rows"),
+    ((12, 144, 1280), torch.bfloat16, "rows"),
+    ((2, 77, 64), torch.float32, "rows"),
+    ((2, 77, 320), torch.float32, "rows"),
+    ((2, 77, 640), torch.float32, "rows"),
+    ((2, 77, 1280), torch.float32, "generic"),
+    ((3, 5, 3000), torch.float32, "generic"),
+    ((2, 7, 77), torch.bfloat16, "generic"),
+    ((2, 5, 96), torch.bfloat16, "generic"),
+]
+
+
+@pytest.mark.parametrize("shape,dtype,route", LN_ROUTES)
+def test_ln_bwd_route(shape, dtype, route):
+    """``rows`` where C = 32 * V * nv with nv <= 5 (V elements in one
+    access of 4 to 16 bytes), else ``generic``."""
+    x = torch.empty(shape, dtype=dtype)
+    assert tln.ln_bwd_route(x, torch.empty_like(x)) == route
+
+
+@pytest.mark.parametrize("route_of", ["gn", "ln"])
+def test_bwd_routes_need_16_byte_alignment(route_of):
+    """A tensor off a 16-byte boundary sends either backward to its
+    general route."""
+    buf = torch.empty(2 * 320 * 64 + 1, dtype=torch.bfloat16)
+    off = buf[1:].view(2, 320, 64)
+    ok = torch.empty(2, 320, 64, dtype=torch.bfloat16)
+    if route_of == "gn":
+        assert tgn.gn_bwd_route(ok, 32, ok) == "resident"
+        assert tgn.gn_bwd_route(ok, 32, off) == "stream"
+    else:
+        assert tln.ln_bwd_route(ok, ok) == "rows"
+        assert tln.ln_bwd_route(ok, off) == "generic"
+
+
+@pytest.mark.parametrize("pdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("norm", ["gn", "ln"])
+def test_cpu_backward_types(norm, pdtype):
+    """On CPU tensors the backward wrappers return (C,) float32 dscale and
+    dbias (their plain versions), and the autograd Functions return the
+    parameters' type, launching nothing."""
+    _build.reset_launches()
+    x, g, sc, bi = _inputs((2, 4, 4, 64), seed=5)
+    tsc = torch.from_numpy(sc).to(pdtype)
+    tbi = torch.from_numpy(bi).to(pdtype)
+    if norm == "gn":
+        tx = _nchw(x)
+        _, st = tgn.gn_fwd(tx, tsc, tbi, 32, 1e-5)
+        out = tgn.gn_bwd(tx, _nchw(g), tsc, tbi, st, 32)
+        fused = lambda x, s, b: tgn.gn_act(x, s, b, 32, 1e-5)
+        tg = _nchw(g)
+    else:
+        tx = torch.from_numpy(x.reshape(2, 16, 64))
+        tg = torch.from_numpy(g.reshape(2, 16, 64))
+        out = tln.ln_bwd(tx, tg, tsc, tbi, 1e-5)
+        fused = lambda x, s, b: tln.layer_norm_act(x, s, b, eps=1e-5)
+    assert out[0].shape == tx.shape
+    for t in out[1:]:
+        assert t.shape == (64,) and t.dtype == torch.float32
+    xa, sa, ba = (t.clone().requires_grad_() for t in (tx, tsc, tbi))
+    fused(xa, sa, ba).backward(tg)
+    assert sa.grad.dtype == pdtype and ba.grad.dtype == pdtype
+    assert torch.equal(sa.grad, out[1].to(pdtype))
+    assert all(n == 0 for n in _build.LAUNCHES.values())
+
+
+def test_norm_bwd_routes_counted_and_reset():
+    """K5b and K6b count their launches per route in ``_build.ROUTES``,
+    and ``reset_launches`` zeroes them."""
+    assert set(_build.ROUTES["K5b groupnorm_bwd"]) == set(tgn.GN_BWD_ENTRY)
+    assert set(_build.ROUTES["K6b layernorm_bwd"]) == set(tln.LN_BWD_ENTRY)
+    _build.ROUTES["K5b groupnorm_bwd"]["resident"] = 3
+    _build.ROUTES["K6b layernorm_bwd"]["generic"] = 2
+    _build.reset_launches()
+    assert all(n == 0 for k in ("K5b groupnorm_bwd", "K6b layernorm_bwd")
+               for n in _build.ROUTES[k].values())
+
+
+@pytest.mark.parametrize("parts,groups", [(1, 1), (2, 1), (5, 2), (9, 3),
+                                          (528, 23), (1056, 32)])
+def test_fold_groups(parts, groups):
+    """The two-level fold's group count (``fold_group_size`` in
+    ``csrc/common.cuh``: ceil(sqrt(parts)) blocks a group), within the
+    counters a device keeps."""
+    assert _build.fold_groups(parts) == groups
+    assert groups + 1 <= _build.FOLD_COUNTERS

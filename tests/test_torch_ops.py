@@ -41,6 +41,8 @@ from emcid_torch.ops.flash_v2 import (
     fwd_route,
     row_delta,
 )
+from emcid_torch.ops.groupnorm import GN_BWD_ENTRY
+from emcid_torch.ops.layernorm import LN_BWD_ENTRY
 from emcid_torch.ops.solve import solve_adj_k, upd_matrix_match_shape
 
 
@@ -278,6 +280,8 @@ def test_reset_launches_clears_routes():
     ("K2 flash_v2_dq", fv2.DQ_ENTRY),
     ("K3 flash_v2_dkv", fv2.DKV_ENTRY),
     ("K4 short_kv_fwd", SHORT_KV_ENTRY),
+    ("K5b groupnorm_bwd", GN_BWD_ENTRY),
+    ("K6b layernorm_bwd", LN_BWD_ENTRY),
 ])
 def test_route_entry_points_are_bound(kernel, entries):
     """Every route a wrapper can pick is counted in ``ROUTES`` and names a C
