@@ -49,9 +49,25 @@ Phases, each printing one JSON line:
    post-edit generation, with the launch count of every kernel (and
    route), phase times and checks of what comes out (finite z and deltas,
    only fc2 of the edited layers changed, 512x512 uint8 images written,
-   K5b's ``resident`` and K6b's ``rows`` route taken).
+   K5b's ``resident`` and K6b's ``rows`` route taken);
+7. the evaluation path on the same folder (``eval_path``), with random
+   full-width scorers (a ViT-B/16 classifier, a CLIP ViT-L/14) and a
+   synthetic ICEB request tree: (a) ``emcid_torch.cli.workflows aice``
+   and the same call again, (b) ``workflows mend`` with both norm knobs
+   at 1, (c) ``workflows debias --method emcid``, (d) ``workflows debias
+   --method uce``, (e) ``apply_emcid_to_clip`` on the CLIP text tower;
+   per run the launches of every kernel and route, phase seconds, images
+   per second at 512 px and checks: summary records finite and stored
+   under their key, the second aice call served from the summary without
+   generating, the pre-edit PNG cache under the reference names, only the
+   edited weights changed (fc2 of the edit layers; the cross-attention
+   K/V projections for UCE), the ViT in f32 on the card against float64
+   on the host, the debias UCE and the clip_edit Stage-2 solves against
+   float64, the debias factors a distribution, the tensor-core routes of
+   K1-K4 (and, with the knobs, K5b ``resident`` and K6b ``rows``).
 
-Then the kernel table line (launches from the CLI path), the card's name
+Then the kernel table line (launches from the CLI path and from the
+evaluation path's mend run), the card's name
 and power limit, and, last, the device line the harness reads.
 Exits non-zero, and prints no result, when there is no CUDA device, when
 the port cannot be imported, or when any phase fails.
@@ -1121,66 +1137,73 @@ def model_check_bf16(torch, comps, failures):
 VAL_PROMPTS = ["a photo of a w0", "an image of a w2"]
 
 
-def cli_path(torch, failures):
+def write_checkpoint(torch, tmp: Path):
+    """The full-width SD-v1.4 pipeline (random f32 weights, seed 0) as a
+    local HF-format folder ``tmp/ckpt`` (``.bin`` state dicts, 4.3 GB):
+    the one folder the CLI path and the evaluation path load.  Returns
+    (folder, its tokenizer, the text encoder's state in bf16, seconds to
+    write, GiB written)."""
+    from emcid_torch.models.loader import build_random_pipeline, save_pipeline
+
+    t0 = time.time()
+    comps = build_random_pipeline("sd-v1.4", dtype=torch.float32, seed=0,
+                                  device="cuda")
+    save_pipeline(comps, tmp / "ckpt")
+    before = {k: v.to(torch.bfloat16)
+              for k, v in comps.text_encoder.state_dict().items()}
+    tokenizer = comps.tokenizer
+    del comps
+    torch.cuda.empty_cache()
+    write_s = time.time() - t0
+    ckpt_gb = sum(f.stat().st_size for f in (tmp / "ckpt").rglob("*")
+                  if f.is_file()) / 2 ** 30
+    return tmp / "ckpt", tokenizer, before, write_s, ckpt_gb
+
+
+def cli_path(torch, tmp: Path, ckpt, failures):
     """``python -m emcid_torch.cli.run_emcid`` in-process with
-    EMCID_TPU_FUSED_GN=1 and EMCID_TPU_FUSED_LN=1, on a local HF-format
-    folder of the full-width SD-v1.4 pipeline (random f32 weights, seed 0,
-    written as ``.bin`` state dicts): the 4 concepts of the main path, the
-    bench hparams, 2 val prompts x 1 sample at 512 px, DPM++ at 10 steps.
-    Returns the launch count of every kernel during the CLI run."""
+    EMCID_TPU_FUSED_GN=1 and EMCID_TPU_FUSED_LN=1, on the local HF-format
+    folder of ``write_checkpoint`` (loaded in bf16): the 4 concepts of the
+    main path, the bench hparams, 2 val prompts x 1 sample at 512 px, DPM++
+    at 10 steps.  Returns the launch count of every kernel during the CLI
+    run."""
     import numpy as np
     from PIL import Image
 
     from emcid_torch.cli import run_emcid
     from emcid_torch.engine.emcid import load_z_list
-    from emcid_torch.models.loader import build_random_pipeline, save_pipeline
     from emcid_torch.ops import _build
 
+    ckpt_dir, _, before, write_s, ckpt_gb = ckpt
+    tmp = tmp / "cli"
     hp = bench_hparams(50)
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        free_gb = shutil.disk_usage(tmp).free / 2 ** 30
-        if free_gb < 10:  # the f32 folder takes 4.3 GB
-            failures.append(f"CLI path: {free_gb:.1f} GB free in {tmp}")
-            return {}, {}
+    (tmp / "hparams").mkdir(parents=True)
+    name = hp.to_json(tmp / "hparams").stem
+    out_dir = tmp / "out"
+    (tmp / "run.json").write_text(json.dumps(dict(
+        requests=REQUESTS, hparams=name, model_ckpt="sd-v1.4",
+        val_prompts=VAL_PROMPTS, out_dir=str(out_dir), sample_num=1)))
+    argv = ["--instruction_path", str(tmp / "run.json"),
+            "--checkpoint_dir", str(ckpt_dir),
+            "--hparams_dir", str(tmp / "hparams"),
+            "--stats_dir", str(tmp / "stats"),
+            "--cache_dir", str(tmp / "z"),
+            "--sampler", "dpm++", "--steps", "10", "--seed", "0"]
+    timings = {}
+    with environ(EMCID_TPU_FUSED_GN="1", EMCID_TPU_FUSED_LN="1"):
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
         t0 = time.time()
-        comps = build_random_pipeline("sd-v1.4", dtype=torch.float32, seed=0,
-                                      device="cuda")
-        save_pipeline(comps, tmp / "ckpt")
-        before = {k: v.to(torch.bfloat16)
-                  for k, v in comps.text_encoder.state_dict().items()}
-        del comps
-        torch.cuda.empty_cache()
-        write_s = time.time() - t0
-        ckpt_gb = sum(f.stat().st_size for f in (tmp / "ckpt").rglob("*")
-                      if f.is_file()) / 2 ** 30
-        (tmp / "hparams").mkdir()
-        name = hp.to_json(tmp / "hparams").stem
-        out_dir = tmp / "out"
-        (tmp / "run.json").write_text(json.dumps(dict(
-            requests=REQUESTS, hparams=name, model_ckpt="sd-v1.4",
-            val_prompts=VAL_PROMPTS, out_dir=str(out_dir), sample_num=1)))
-        argv = ["--instruction_path", str(tmp / "run.json"),
-                "--checkpoint_dir", str(tmp / "ckpt"),
-                "--hparams_dir", str(tmp / "hparams"),
-                "--stats_dir", str(tmp / "stats"),
-                "--cache_dir", str(tmp / "z"),
-                "--sampler", "dpm++", "--steps", "10", "--seed", "0"]
-        timings = {}
-        with environ(EMCID_TPU_FUSED_GN="1", EMCID_TPU_FUSED_LN="1"):
-            torch.cuda.reset_peak_memory_stats()
-            _build.reset_launches()
-            t0 = time.time()
-            edited, deltas = run_emcid.main(argv, timings=timings)
-            torch.cuda.synchronize()
-            total_s = time.time() - t0
-            launches = dict(_build.LAUNCHES)
-            routes = copy.deepcopy(_build.ROUTES)
-        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-        z_list, missing = load_z_list(REQUESTS, f"{tmp / 'z'}/{name}/", hp)
-        images = {phase: [np.asarray(Image.open(f)) for f in
-                          sorted((out_dir / phase).glob("*.png"))]
-                  for phase in ("pre_edit", "post_edit")}
+        edited, deltas = run_emcid.main(argv, timings=timings)
+        torch.cuda.synchronize()
+        total_s = time.time() - t0
+        launches = dict(_build.LAUNCHES)
+        routes = copy.deepcopy(_build.ROUTES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    z_list, missing = load_z_list(REQUESTS, f"{tmp / 'z'}/{name}/", hp)
+    images = {phase: [np.asarray(Image.open(f)) for f in
+                      sorted((out_dir / phase).glob("*.png"))]
+              for phase in ("pre_edit", "post_edit")}
     changed = sorted(k for k, v in edited.text_encoder.state_dict().items()
                      if not torch.equal(v, before[k]))
     expect = sorted(f"text_model.encoder.layers.{i}.mlp.fc2.weight"
@@ -1220,10 +1243,474 @@ def cli_path(torch, failures):
     return launches, routes
 
 
-def kernel_table(rows, launches, routes):
+# ---------------------------------------------------------------------------
+# the evaluation path: emcid_torch.cli.workflows aice / mend / debias and
+# apply_emcid_to_clip
+# ---------------------------------------------------------------------------
+
+# edit classes (source -> dest), held-out classes, one alias, the mend
+# classes (a name that scores well, one that scores badly) and the debias
+# professions: words of the checkpoint's tokenizer
+ICEB_EDIT = [("w10", 0, "w11", 1), ("w12", 2, "w13", 3)]
+ICEB_TEST = [("w20", 5), ("w21", 6)]
+ICEB_ALIAS = {"0": "w10, w30", "2": "w12"}
+MEND = {"7": ("w40", "w41"), "8": ("w42", "w43")}
+PROFESSIONS = ["w50", "w53"]
+CLIP_REQUESTS = [
+    {"prompts": ["a photo of a {}", "{}"], "source": f"w{i}",
+     "dest": f"w{i + 1}", "negative_prompts": [f"a w{i + 2}", "a w63"]}
+    for i in (56, 59)]
+# the ViT in f32 on the card against the same ViT in float64 on the host
+VIT_F64_TOL = 1e-4
+# the debias UCE and clip_edit Stage-2 solves against float64 (ROADMAP F1)
+SOLVE_REL_TOL = 1e-3
+
+
+def write_iceb_tree(data: Path) -> None:
+    """Synthetic request files in the parsers' formats: the ICEB edit and
+    test JSONs (5 prompts per edit class, 3 per held-out class), the ViT
+    label map, the mend class summary and prompt pool, and a 2-row TIMED
+    gender CSV."""
+    import csv
+
+    iceb = data / "iceb_data"
+    iceb.mkdir(parents=True)
+    rows, idx = [], 0
+    for cls, cid, dest, did in ICEB_EDIT:
+        for _ in range(5):
+            rows.append({"class name": cls,
+                         "text prompt": f"an image of a {{}} w{idx % 8}",
+                         "random seed": 100 + idx, "idx": idx,
+                         "class id": cid, "checked": True, "dest": dest,
+                         "dest id": did})
+            idx += 1
+    (iceb / "imgnet_aug_edit.json").write_text(json.dumps(rows))
+    test = [{"class name": cls, "text prompt": f"a photo of a {cls} w{i}",
+             "random seed": 50 + 3 * k + i, "idx": 3 * k + i, "class id": cid}
+            for k, (cls, cid) in enumerate(ICEB_TEST) for i in range(3)]
+    (iceb / "imgnet_aug_test.json").write_text(json.dumps(test))
+    (iceb / "vit_classifier_config.json").write_text(
+        json.dumps({"id2label": ICEB_ALIAS}))
+    summary = {cid: {good: {"mean": 0.8, "std": 0.1, "number": 8},
+                     bad: {"mean": 0.05, "std": 0.01, "number": 8}}
+               for cid, (good, bad) in MEND.items()}
+    (iceb / "imgnet_prompts_cls.json").write_text(json.dumps(summary))
+    pool = [{"class name": good, "text prompt": f"an image of {good} w{i}",
+             "random seed": 200 + 3 * k + i, "idx": 3 * k + i,
+             "class id": int(cid)}
+            for k, (cid, (good, _)) in enumerate(MEND.items())
+            for i in range(3)]
+    (iceb / "imgnet_aug_full.json").write_text(json.dumps(pool))
+    (data / "debias").mkdir()
+    with open(data / "debias" / "TIMED_gender_test_set_processed.csv",
+              "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=["female", "male", "old", "new",
+                                          "validation", "ex1", "ex2", "ex3",
+                                          "ex4", "ex5"])
+        w.writeheader()
+        for p in PROFESSIONS:
+            w.writerow({"female": f"a w{int(p[1:]) + 1} {p}",
+                        "male": f"a w{int(p[1:]) + 2} {p}", "old": f"a {p}",
+                        "new": f"a w{int(p[1:]) + 1} {p}",
+                        "validation": f"a photo of a {p}",
+                        **{f"ex{i}": f"a {p} w{i}" for i in range(1, 6)}})
+
+
+def write_scorers(torch, tmp: Path, tokenizer):
+    """Random full-width scorer checkpoints saved with ``torch.save`` as HF
+    state dicts: a ViT-B/16 ImageNet classifier (seed 1) and a CLIP
+    ViT-L/14 (vision tower seed 2; the SD text tower with a 768-wide
+    projection, seed 3).  Returns (vit path, clip path, the CLIP text
+    tower's state)."""
+    import dataclasses
+
+    from emcid_torch.models.clip_text import CLIPTextEncoder
+    from emcid_torch.models.configs import SD_V14_TEXT
+    from emcid_torch.models.loader import _random_init_
+    from emcid_torch.models.vision import (
+        CLIP_VIT_L14_VISION,
+        VIT_BASE_224,
+        build_random_clip_vision,
+        build_random_vit,
+    )
+
+    cpu = lambda m: {k: v.cpu() for k, v in m.state_dict().items()}
+    vit = build_random_vit(VIT_BASE_224, seed=1, device="cuda")
+    torch.save(cpu(vit), tmp / "vit_b16.pt")
+    del vit
+    vision = build_random_clip_vision(CLIP_VIT_L14_VISION, seed=2,
+                                      device="cuda")
+    with torch.device("cuda"):
+        text = CLIPTextEncoder(dataclasses.replace(
+            SD_V14_TEXT, projection_dim=768,
+            eos_token_id=tokenizer.eos_token_id))
+    _random_init_(text, torch.Generator(device="cuda").manual_seed(3))
+    text_state = cpu(text)
+    torch.save({**cpu(vision), **text_state}, tmp / "clip_l14.pt")
+    del vision, text
+    torch.cuda.empty_cache()
+    return tmp / "vit_b16.pt", tmp / "clip_l14.pt", text_state
+
+
+@contextlib.contextmanager
+def spy(module, name, calls, keep=True):
+    """Record every call of ``module.name`` inside the scope: (args,
+    kwargs, result) when ``keep``, and always its seconds and the length
+    of its third positional argument or ``images``/``prompts`` (the image
+    count of a generate or classify call)."""
+    real = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.time()
+        out = real(*args, **kwargs)
+        n = len(args[1]) if len(args) > 1 and hasattr(args[1], "__len__") \
+            else 0
+        calls.append(dict(seconds=time.time() - t0, n=n,
+                          call=(args, kwargs, out) if keep else None))
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def changed_params(torch, before_module, after_module):
+    before = dict(before_module.named_parameters())
+    return {k for k, v in after_module.named_parameters()
+            if not torch.equal(v, before[k])}
+
+
+def vit_f64_check(torch, vit_path, images):
+    """The scorer's ViT (f32 on the card, exact f32) against the same
+    weights in float64 on the host, on ``images``: max |p32 - p64| over
+    max |p64| of the class probabilities."""
+    import numpy as np
+
+    from emcid_torch.evals.scorers import ViTScorer, make_vit_scorer
+    from emcid_torch.models.vision import ViTClassifier, VIT_BASE_224
+
+    sd = torch.load(vit_path, map_location="cpu", weights_only=True)
+    p32 = make_vit_scorer(torch_state_dict=sd, device="cuda").probs(images)
+    m64 = ViTClassifier(VIT_BASE_224)
+    m64.load_state_dict(sd, strict=True)
+    p64 = ViTScorer(m64.double().eval().requires_grad_(False))
+    # the same resize on the host in float64
+    from emcid_torch.models.vision import (
+        VIT_IMAGE_MEAN, VIT_IMAGE_STD, preprocess_for_model)
+
+    x = preprocess_for_model(images, m64.config.image_size, VIT_IMAGE_MEAN,
+                             VIT_IMAGE_STD, device="cpu").double()
+    with torch.no_grad():
+        ref = torch.softmax(p64.model(x), dim=-1).numpy()
+    return float(np.abs(p32 - ref).max() / np.abs(ref).max())
+
+
+def eval_path(torch, tmp: Path, ckpt, failures):
+    """The ICEB evaluation path through its entry points, on the folder of
+    ``write_checkpoint`` (bf16) with random full-width scorers and a
+    synthetic request tree, the bench hparams at 10 Stage-1 steps, PNDM at
+    10 steps at 512 px, covariances over the synthetic corpus cached in one
+    stats directory for every run:
+
+    (a) ``workflows aice`` (2 edits, 2 held-out classes), norm knobs off,
+        then the same call again (the stored record, no generation);
+    (b) ``workflows mend --method emcid`` (2 edits), both knobs at 1;
+    (c) ``workflows debias --method emcid`` (1 profession, 2 factor-search
+        iterations of 4 images);
+    (d) ``workflows debias --method uce`` (the same sizes: 2 iterations of
+        5 seeds x 4 images);
+    (e) ``apply_emcid_to_clip`` on 2 requests, as a library call, on the
+        CLIP text tower (f32).
+
+    One JSON row per run with its kernel launches per route, phase
+    seconds, images per second and its checks."""
+    import dataclasses
+
+    import numpy as np
+    from PIL import Image
+
+    import emcid_torch.engine.debias as debias_mod
+    import emcid_torch.engine.editor as editor_mod
+    import emcid_torch.engine.uce as uce_mod
+    from emcid_torch.cli import workflows
+    from emcid_torch.engine.clip_edit import apply_emcid_to_clip
+    from emcid_torch.engine.editor import resolve_covariances_for
+    from emcid_torch.engine.emcid import execute_emcid_text_encoder, load_z_list
+    from emcid_torch.evals.summary import summary_key, summary_path
+    from emcid_torch.models.clip_text import CLIPTextEncoder
+    from emcid_torch.models.configs import SD_V14_TEXT
+    from emcid_torch.ops import _build
+
+    ckpt_dir, tokenizer, _, _, _ = ckpt
+    tmp = tmp / "eval"
+    data = tmp / "data"
+    write_iceb_tree(data)
+    hp = bench_hparams(10)
+    (tmp / "hparams").mkdir(parents=True)
+    name = hp.to_json(tmp / "hparams").stem
+    t0 = time.time()
+    vit_path, clip_path, clip_text_state = write_scorers(torch, tmp, tokenizer)
+    scorers_s = time.time() - t0
+    fc2 = {f"text_model.encoder.layers.{i}.mlp.fc2.weight" for i in hp.layers}
+    common = ["--checkpoint_dir", str(ckpt_dir), "--hparam", name,
+              "--hparams_dir", str(tmp / "hparams"), "--data_dir", str(data),
+              "--stats_dir", str(tmp / "stats"), "--steps", "10",
+              "--seed", "0"]
+    rows = []
+
+    def run(label, argv, knobs, engine):
+        """One CLI call with its launches, timings and the engine call it
+        made (``engine``: (module, function name))."""
+        timings = {}
+        calls, gens, cls = [], [], []
+        with environ(**knobs), spy(*engine, calls), \
+                spy(debias_mod, "generate", gens, keep=False), \
+                spy(uce_mod, "generate", gens, keep=False), \
+                spy(debias_mod, "classify_ratio", cls, keep=False):
+            _build.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            out = workflows.main(argv, timings=timings)
+            torch.cuda.synchronize()
+            seconds = time.time() - t0
+            launches = dict(_build.LAUNCHES)
+            routes = copy.deepcopy(_build.ROUTES)
+        if gens:  # the debias runs generate through the engine
+            timings["generation"] = sum(g["seconds"] for g in gens)
+            timings["generated_images"] = sum(g["n"] for g in gens)
+            timings["scoring"] = sum(c["seconds"] for c in cls)
+            timings["scored_images"] = sum(c["n"] for c in cls)
+        n_img = timings.get("generated_images", 0)
+        row = dict(
+            phase="eval_path", run=label,
+            entry="python -m emcid_torch.cli.workflows " + " ".join(
+                a for a in argv if not a.startswith("/")),
+            knobs=knobs, seconds=seconds,
+            **{f"{k}_s" if not k.endswith("images") else k: v
+               for k, v in timings.items()},
+            images_per_s_512=(n_img / timings["generation"]
+                              if n_img else None),
+            scorer="CLIP ViT-L/14" if argv[0] == "debias" else "ViT-B/16",
+            scorer_s_per_image=(timings["scoring"] / timings["scored_images"]
+                                if timings.get("scored_images") else None),
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+            launches=launches, routes=routes)
+        return row, out, calls
+
+    def finish(row, checks):
+        row.update(checks)
+        row["ok"] = all(v for k, v in checks.items() if k.endswith("_ok"))
+        emit(row)
+        rows.append(row)
+        if not row["ok"]:
+            failures.append(f"eval path {row['run']}: {row}")
+
+    # (a) aice, knobs off, and the same call again
+    aice = ["aice", *common, "--vit_checkpoint", str(vit_path),
+            "--edit_nums", "2", "--specificity_classes", "2",
+            "--cache_dir", str(tmp / "cache_a"),
+            "--results_dir", str(tmp / "results")]
+    off = dict.fromkeys(KNOBS)
+    row, out, calls = run("a_aice", aice, off, (editor_mod, "apply_emcid"))
+    record = out[0]
+    (before, *_), _, (edited, _) = calls[-1]["call"]
+    spath = summary_path(name, "imgnet_aug", tmp / "results")
+    stored = json.loads(spath.read_text()).get(
+        summary_key(2, hp.mom2_update_weight, hp.edit_weight))
+    fields = [k for k in record if k.startswith(("pre_", "post_"))]
+    cache = tmp / "cache_a" / "images" / "imgnet_aug"
+    pngs = sorted(p.name for p in cache.glob("*.png"))
+    want = ([f"train_{c}_pre_{i}.png" for c, *_ in ICEB_EDIT[:1]
+             for i in range(3)] + [f"val_{c}_pre_0.png" for c, *_ in
+                                   ICEB_EDIT[:1]]
+            + [f"{c}_{3 * k}.png" for k, (c, _) in enumerate(ICEB_TEST)])
+    changed = {k for k in changed_params(torch, before.text_encoder,
+                                         edited.text_encoder)}
+    images = np.stack([np.asarray(Image.open(cache / n).convert("RGB"))
+                       for n in pngs[:8]])
+    t0 = time.time()
+    vit_rel = vit_f64_check(torch, vit_path, images)
+    checks = dict(
+        fields=len(fields),
+        fields_finite_ok=len(fields) == 20 and all(
+            record[k] is not None and np.isfinite(record[k]) for k in fields),
+        edit_time_s_ok=record["edit_time_s"] > 0,
+        summary_key_ok=stored == record,
+        cache_pngs=len(pngs), cache_names_ok=set(want) <= set(pngs),
+        changed_params=sorted(changed), only_fc2_of_edit_layers_ok=(
+            changed == fc2),
+        bf16_routes_ok=routes_ok(row["routes"]),
+        vit_f32_vs_f64_rel=vit_rel, vit_f64_tolerance=VIT_F64_TOL,
+        vit_f64_ok=vit_rel <= VIT_F64_TOL,
+        vit_f64_check_s=time.time() - t0)
+    del before, edited, calls
+    finish(row, checks)
+    row, again, _ = run("a_aice_again", aice, off,
+                        (editor_mod, "apply_emcid"))
+    finish(row, dict(same_record_ok=again[0] == record,
+                     k1_launches=row["launches"]["K1 flash_v2_fwd"],
+                     no_generation_ok=row["launches"]["K1 flash_v2_fwd"] == 0
+                     and not row.get("generated_images")))
+    torch.cuda.empty_cache()
+
+    # (b) mend with both knobs at 1: every kernel on the new entry point
+    mend = ["mend", *common, "--method", "emcid", "--num_edit", "2",
+            "--vit_checkpoint", str(vit_path), "--specificity_classes", "2",
+            "--cache_dir", str(tmp / "cache_b"),
+            "--results_dir", str(tmp / "results")]
+    row, record, calls = run("b_mend", mend, dict.fromkeys(KNOBS, "1"),
+                             (editor_mod, "apply_emcid"))
+    (before, *_), _, (edited, _) = calls[-1]["call"]
+    changed = changed_params(torch, before.text_encoder, edited.text_encoder)
+    fields = [k for k in record if k.startswith(("pre_", "post_"))]
+    routes = row["routes"]
+    stored = json.loads(summary_path(name, "imgnet_mend", tmp / "results")
+                        .read_text()).get(
+        summary_key(2, hp.mom2_update_weight, hp.edit_weight))
+    checks = dict(
+        fields=len(fields),
+        fields_finite_ok=len(fields) == 10 and all(
+            record[k] is not None and np.isfinite(record[k]) for k in fields),
+        edit_time_s_ok=record["edit_time_s"] > 0,
+        summary_key_ok=stored == record,
+        changed_params=sorted(changed),
+        only_fc2_of_edit_layers_ok=changed == fc2,
+        bf16_routes_ok=routes_ok(routes),
+        all_kernels_ok=all(row["launches"][k] > 0 for k in SOURCES),
+        norm_routes_ok=(routes["K5b groupnorm_bwd"]["resident"] > 0
+                        and routes["K6b layernorm_bwd"]["rows"] > 0))
+    del before, edited, calls
+    finish(row, checks)
+    torch.cuda.empty_cache()
+
+    # (c), (d) gender debias, EMCID's factor search and the UCE loop
+    debias = ["debias", *common, "--num_requests", "1", "--max_iter", "2",
+              "--num_samples", "4", "--clip_checkpoint", str(clip_path),
+              "--cache_dir", str(tmp / "cache_c")]
+    row, out, calls = run(
+        "c_debias_emcid", debias + ["--method", "emcid"], off,
+        (debias_mod, "apply_emcid_to_text_encoder_debias"))
+    (before, *_), _, (edited, deltas, factors) = calls[-1]["call"]
+    changed = changed_params(torch, before.text_encoder, edited.text_encoder)
+    f = np.asarray(factors, np.float64)
+    checks = dict(
+        factors=f.tolist(),
+        factors_ok=bool(np.isfinite(f).all() and (f >= 0).all()
+                        and np.allclose(f.sum(-1), 1.0, atol=1e-6)),
+        deltas_finite_ok=all(np.isfinite(a).all() and np.isfinite(r).all()
+                             for a, r in deltas.values()),
+        changed_params=sorted(changed),
+        only_fc2_of_edit_layers_ok=changed == fc2,
+        bf16_routes_ok=routes_ok(row["routes"]))
+    del before, edited, calls, out
+    finish(row, checks)
+    torch.cuda.empty_cache()
+
+    solves = []
+    with spy(uce_mod, "_uce_solve_all", solves):
+        row, out, calls = run("d_debias_uce", debias + ["--method", "uce"],
+                              off, (uce_mod, "edit_model_debias"))
+    (before, *_), _, (edited, weights, init_ratios, ratios) = \
+        calls[-1]["call"]
+    kv = {f"{n}.weight" for n in
+          uce_mod.cross_attn_kv_layer_names(before.unet)}
+    changed = changed_params(torch, before.unet, edited.unet)
+    worst = 0.0
+    for s in solves:
+        (mat2, stack), _, got = s["call"]
+        ref = np.linalg.solve(mat2.double().cpu().numpy(),
+                              stack.double().cpu().numpy().transpose(0, 2, 1))
+        worst = max(worst, float(np.linalg.norm(got.double().cpu().numpy()
+                                                - ref) / np.linalg.norm(ref)))
+    checks = dict(
+        init_ratios=[r.tolist() for r in init_ratios],
+        ratios=[r.tolist() for r in ratios], solves=len(solves),
+        uce_f32_vs_f64_rel=worst, solve_rel_tolerance=SOLVE_REL_TOL,
+        uce_solve_ok=bool(solves) and worst <= SOLVE_REL_TOL,
+        changed_params=len(changed),
+        only_kv_ok=changed == kv,
+        bf16_routes_ok=routes_ok(row["routes"], {
+            k: BF16_ROUTES[k] for k in ("K1 flash_v2_fwd",
+                                        "K4 short_kv_fwd")}))
+    del before, edited, calls, out, solves
+    finish(row, checks)
+    torch.cuda.empty_cache()
+
+    # (e) the CLIP text tower's edit, called as a library function
+    with torch.device("meta"):
+        text = CLIPTextEncoder(dataclasses.replace(
+            SD_V14_TEXT, projection_dim=768,
+            eos_token_id=tokenizer.eos_token_id))
+    text.load_state_dict(clip_text_state, strict=True, assign=True)
+    text = text.to("cuda").float().eval().requires_grad_(False)
+    cache_name = f"{tmp / 'z_clip'}/"
+    _build.reset_launches()
+    t0 = time.time()
+    edited, deltas = apply_emcid_to_clip(
+        text, tokenizer, CLIP_REQUESTS, hp, cache_name=cache_name,
+        stats_dir=tmp / "stats", verbose=False)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = dict(_build.LAUNCHES)
+    z_list, missing = load_z_list(CLIP_REQUESTS, cache_name, hp)
+    zs = np.stack(z_list)
+    # Stage 2 on the card (f32 Cholesky + refinement on float64 residuals)
+    # against the host float64 solve on the run's z: with seeded
+    # well-conditioned covariances, as on the main path, and with the run's
+    # own covariances over the 20-word synthetic corpus (condition ~1e8)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    inter = text.config.intermediate_size
+    seeded = []
+    for _ in hp.layers:
+        a = torch.randn(2 * inter, inter, generator=g, device="cuda")
+        seeded.append(a.T @ a / a.shape[0])
+    corpus = resolve_covariances_for(text, tokenizer, hp,
+                                     stats_dir=tmp / "stats",
+                                     model_name="clip_text", verbose=False)
+    first = f"{hp.rewrite_module_tmp.format(hp.layers[0])}.weight"
+    rel = {}
+    for label, covs in (("seeded", seeded), ("corpus", corpus)):
+        stage2 = {}
+        for method in ("f32_ir", "f64"):
+            d, _ = execute_emcid_text_encoder(
+                text, tokenizer, CLIP_REQUESTS, hp, zs=zs, covs=covs,
+                solve_method=method, verbose=False)
+            stage2[method] = d[first][0] @ d[first][1].T
+        rel[label] = float(np.linalg.norm(stage2["f32_ir"] - stage2["f64"])
+                           / np.linalg.norm(stage2["f64"]))
+    eig = torch.linalg.eigvalsh(corpus[0].double())
+    changed = changed_params(torch, text, edited)
+    row = dict(phase="eval_path", run="e_clip_edit",
+               entry="emcid_torch.engine.clip_edit.apply_emcid_to_clip",
+               model="CLIP ViT-L/14 text tower with a 768-wide projection "
+               "(random f32 weights, seed 3)", requests=len(CLIP_REQUESTS),
+               grad_steps=hp.v_num_grad_steps, seconds=seconds,
+               launches=launches)
+    finish(row, dict(
+        z_finite_ok=bool(not missing and np.isfinite(zs).all()),
+        z_moved=[float(np.linalg.norm(z)) for z in zs],
+        deltas_finite_ok=all(np.isfinite(a).all() and np.isfinite(r).all()
+                             for a, r in deltas.values()),
+        stage2_f32_ir_vs_f64_rel=rel, solve_rel_tolerance=SOLVE_REL_TOL,
+        stage2_solve_ok=max(rel.values()) <= SOLVE_REL_TOL,
+        corpus_cov_condition=float(eig[-1] / eig[0].clamp_min(1e-300)),
+        changed_params=sorted(changed),
+        only_fc2_of_edit_layers_ok=changed == fc2))
+    del text, edited
+    torch.cuda.empty_cache()
+    emit(dict(phase="eval_path_setup", write_scorers_s=scorers_s,
+              hparams=name))
+    return rows
+
+
+def kernel_table(rows, launches, routes, eval_run):
     """One entry per kernel: the product-shape bf16 measurement of the
     first shape the main paths give it, and its launches (per route, where
-    it has several) in the run that ``launches`` and ``routes`` count."""
+    it has several) in the run that ``launches`` and ``routes`` count (the
+    CLI path), and in the evaluation path's run ``eval_run`` (mend, both
+    knobs at 1)."""
     table = []
     for name, (source, replaces) in SOURCES.items():
         timed = [r for r in rows if r["kernel"] == name and "kernel_ms" in r]
@@ -1239,6 +1726,9 @@ def kernel_table(rows, launches, routes):
         if name in routes:
             entry["route_launches"] = routes[name]
             entry["kernel_route"] = r["route"]
+        entry["eval_path_launches"] = eval_run["launches"].get(name, 0)
+        if name in eval_run["routes"]:
+            entry["eval_path_route_launches"] = eval_run["routes"][name]
         table.append(entry)
     return table
 
@@ -1285,12 +1775,21 @@ def main(argv=None) -> int:
         model_check(torch, unet, failures, gn, ln)
     del unet
     torch.cuda.empty_cache()
-    launches, routes = cli_path(torch, failures)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        free_gb = shutil.disk_usage(tmp).free / 2 ** 30
+        if free_gb < 12:  # the f32 folder and the scorers take 6.4 GB
+            failures.append(f"{free_gb:.1f} GB free in {tmp}")
+        else:
+            ckpt = write_checkpoint(torch, tmp)
+            launches, routes = cli_path(torch, tmp, ckpt, failures)
+            evals = eval_path(torch, tmp, ckpt, failures)
     if failures:
         for f in failures:
             print(f"FAILED: {f}", file=sys.stderr)
         return 1
-    emit({"kernels": kernel_table(rows, launches, routes)})
+    mend = next(r for r in evals if r["run"] == "b_mend")
+    emit({"kernels": kernel_table(rows, launches, routes, mend)})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

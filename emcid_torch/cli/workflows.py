@@ -1,0 +1,398 @@
+"""Benchmark workflow launchers on the port: the ICEB evaluation path.
+
+    python -m emcid_torch.cli.workflows aice   --hparam ... --edit_nums 1,5,10
+    python -m emcid_torch.cli.workflows mend   --hparam ... --num_edit 140
+    python -m emcid_torch.cli.workflows debias --hparam ... --max_iter 10
+
+Counterpart of ``emcid_tpu/cli/workflows.py`` with the same flags.  The
+port runs three of its subcommands: ``aice`` (the AICE harness,
+``evals/iceb.py``), ``mend`` (Concept Rectification with EMCID or the UCE
+baseline, ``evals/rectification.py``) and ``debias`` (the gender debias
+edit, EMCID's factor search or the iterative UCE loop).  The others stay
+in the parser and raise ``NotImplementedError`` naming their ROADMAP item.
+
+Model sources (no hub access): ``--checkpoint_dir`` (a local HF-format SD
+folder, through ``models/loader.load_pipeline``), ``--random-init`` or
+``--tiny``.  Scorers: ``--vit_checkpoint`` (an HF
+``ViTForImageClassification`` state dict saved with ``torch.save``; else a
+random tiny ViT) and ``--clip_checkpoint`` (an HF ``CLIPModel`` state dict:
+ViT-L/14 vision tower, text tower with a 768-wide projection; else random
+towers).  Runs on the card (``--platform cuda``, the default, ``--tiny``
+included) unless ``--platform cpu`` asks for the CPU.  The fused-norm knobs
+``EMCID_TPU_FUSED_GN`` and ``EMCID_TPU_FUSED_LN`` are read from the
+environment.
+
+    python -m emcid_torch.cli.workflows aice --checkpoint_dir ckpt/ \\
+        --vit_checkpoint vit.pt --edit_nums 2 --steps 10
+    python -m emcid_torch.cli.workflows mend --tiny --platform cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Dict, Optional
+
+import numpy as np
+
+# subcommands of the JAX CLI that the port does not run yet, and the
+# ROADMAP item each waits for
+WAITING = {
+    "road": "M12 (evals/refact_benchmark)",
+    "timed": "M12 (evals/refact_benchmark)",
+    "artists": "M12 (evals/artists_eval)",
+    "coco": "M12 (evals/coco_eval, models/inception)",
+    "i2p": "M12 (evals/i2p_eval)",
+    "validate_openclip": "M12 (models/convert_openclip)",
+    "plots": "M12 (evals/plotting)",
+    "validate": "M13 (cli/validate)",
+    "certify_levers": "M13 (evals/lever_cert)",
+    "layer_stats": "M13 (cli/workflows layer_stats)",
+    "sequential": "M13 (experiments/sequential)",
+}
+
+
+def _add_common(p: argparse.ArgumentParser):
+    p.add_argument("--hparam", required=False,
+                   default="dest_s-200_c-1.5_ly-7-11_lr-0.2_wd-5e-04_txt-align-0.01")
+    p.add_argument("--hparams_dir", default=None)
+    p.add_argument("--mom2_weight", type=float, default=None)
+    p.add_argument("--edit_weight", type=float, default=None)
+    p.add_argument("--checkpoint_dir", default=None)
+    p.add_argument("--random-init", action="store_true")
+    p.add_argument("--tiny", action="store_true")
+    p.add_argument("--platform", default="cuda", choices=["cpu", "cuda"],
+                   help="device to run on (default: the card)")
+    p.add_argument("--data_dir", default=None)
+    p.add_argument("--cache_dir", default=None)
+    p.add_argument("--results_dir", default=None)
+    p.add_argument("--stats_dir", default=None)
+    p.add_argument("--steps", type=int, default=50,
+                   help="sampler inference steps")
+    p.add_argument("--sampler", default=None,
+                   choices=["pndm", "ddim", "dpm++"],
+                   help="default pndm (the reference SD default); dpm++ "
+                   "reaches PNDM-50 quality in 20-25 steps")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--no-mesh", action="store_true",
+                   help="accepted for the JAX CLI's sake; the port runs on "
+                   "one device")
+
+
+def _setup(args, timings: Optional[Dict[str, float]] = None):
+    """(components, hparams, gen_kwargs, mesh) of the model source the
+    flags name, on ``--platform``; ``timings["load"]`` gets the seconds."""
+    from emcid_torch.hparams import load_hparams
+    from emcid_torch.models.loader import (
+        build_random_pipeline, build_tiny_pipeline, load_pipeline,
+    )
+    from emcid_torch.runtime import resolve_device
+
+    dev = resolve_device(args.platform)
+    t0 = time.time()
+    hparams = load_hparams(args.hparam, hparams_dir=args.hparams_dir)
+    if args.tiny:
+        comps = build_tiny_pipeline(seed=args.seed, device=dev)
+        gen_kwargs = dict(num_inference_steps=min(args.steps, 4),
+                          height=16, width=16)
+        n = comps.text_encoder.config.num_hidden_layers
+        if max(hparams.layers) >= n:
+            k = min(len(hparams.layers), n)
+            hparams = dataclasses.replace(hparams,
+                                          layers=list(range(n - k, n)),
+                                          v_num_grad_steps=min(
+                                              hparams.v_num_grad_steps, 4))
+    elif args.checkpoint_dir:
+        comps = load_pipeline(args.checkpoint_dir, device=dev)
+        gen_kwargs = dict(num_inference_steps=args.steps, height=512,
+                          width=512)
+    elif getattr(args, "random_init", False):
+        comps = build_random_pipeline(seed=args.seed, device=dev)
+        gen_kwargs = dict(num_inference_steps=args.steps, height=512,
+                          width=512)
+    else:
+        raise SystemExit(
+            "no model source: --checkpoint_dir / --random-init / --tiny")
+    gen_kwargs["sampler"] = getattr(args, "sampler", None) or "pndm"
+    if dev.type == "cuda":
+        import torch
+
+        torch.cuda.synchronize()
+    if timings is not None:
+        timings["load"] = time.time() - t0
+    # one device: the mesh stays None (ROADMAP M14)
+    return comps, hparams, gen_kwargs, None
+
+
+def _vit_scorer(args, device):
+    from emcid_torch.evals.scorers import make_vit_scorer
+
+    if getattr(args, "vit_checkpoint", None):
+        import torch
+
+        sd = torch.load(args.vit_checkpoint, map_location="cpu",
+                        weights_only=True)
+        return make_vit_scorer(torch_state_dict=sd, device=device)
+    print("[workflows] no --vit_checkpoint: using a randomly initialized ViT "
+          "scorer (structure-only smoke run)")
+    return make_vit_scorer(device=device)
+
+
+def _clip_scorer(args, comps):
+    """The full CLIP scorer: ViT-L/14 and the SD text tower with a 768-wide
+    projection from ``--clip_checkpoint``, else random towers (tiny ones
+    with ``--tiny``), f32 on the components' device."""
+    import torch
+
+    from emcid_torch.models.clip_text import CLIPTextEncoder
+    from emcid_torch.models.configs import SD_V14_TEXT
+    from emcid_torch.models.loader import _frozen, _random_init_
+    from emcid_torch.models.vision import (
+        CLIP_VIT_L14_VISION,
+        TINY_CLIP_VISION,
+        CLIPScorer,
+        CLIPVisionEncoder,
+        build_random_clip_vision,
+    )
+
+    dev = comps.device
+    eos = comps.tokenizer.eos_token_id
+    if getattr(args, "clip_checkpoint", None):
+        sd = torch.load(args.clip_checkpoint, map_location="cpu",
+                        weights_only=True)
+        # built without storage, then given the checkpoint's tensors
+        with torch.device("meta"):
+            vision = CLIPVisionEncoder(CLIP_VIT_L14_VISION)
+            text = CLIPTextEncoder(dataclasses.replace(
+                SD_V14_TEXT, projection_dim=768, eos_token_id=eos))
+        vision.load_state_dict(
+            {k: v for k, v in sd.items()
+             if k.startswith(("vision_model.", "visual_projection."))},
+            strict=True, assign=True)
+        text.load_state_dict(
+            {k: v for k, v in sd.items()
+             if k.startswith(("text_model.", "text_projection."))
+             and not k.endswith("position_ids")}, strict=True, assign=True)
+        return CLIPScorer(_frozen(text.to(dev), torch.float32),
+                          _frozen(vision.to(dev), torch.float32),
+                          comps.tokenizer)
+    print("[workflows] no --clip_checkpoint: using a randomly initialized "
+          "CLIP scorer (structure-only smoke run)")
+    cfg = TINY_CLIP_VISION if args.tiny else CLIP_VIT_L14_VISION
+    vision = build_random_clip_vision(cfg, seed=5, device=dev)
+    with torch.device(dev):
+        text = CLIPTextEncoder(dataclasses.replace(
+            comps.text_encoder.config, projection_dim=cfg.projection_dim))
+    _random_init_(text, torch.Generator(device=dev).manual_seed(6))
+    return CLIPScorer(_frozen(text, torch.float32), vision, comps.tokenizer)
+
+
+def cmd_aice(args, timings=None):
+    from emcid_torch.evals.iceb import emcid_test_text_encoder_imgnet
+
+    comps, hparams, gen_kwargs, mesh = _setup(args, timings)
+    scorer = _vit_scorer(args, comps.device)
+    edit_nums = [int(x) for x in args.edit_nums.split(",")]
+    records = []
+    for n in edit_nums:  # the reference sweeps descending (test.py:753-786)
+        records.append(emcid_test_text_encoder_imgnet(
+            comps, scorer, hparams, args.hparam, num_edit=n,
+            mom2_weight=args.mom2_weight, edit_weight=args.edit_weight,
+            dataset_name=args.dataset, data_dir=args.data_dir,
+            cache_dir=args.cache_dir, results_dir=args.results_dir,
+            gen_kwargs=gen_kwargs,
+            specificity_classes=args.specificity_classes,
+            apply_kwargs=dict(
+                stats_dir=args.stats_dir, mesh=mesh,
+                num_inference_steps=gen_kwargs["num_inference_steps"]),
+            timings=timings,
+        ))
+    return records
+
+
+def cmd_mend(args, timings=None):
+    """Concept rectification (reference sh_scripts/rectification launcher)."""
+    from emcid_torch.evals.rectification import emcid_test_imgnet_mend
+
+    comps, hparams, gen_kwargs, mesh = _setup(args, timings)
+    scorer = _vit_scorer(args, comps.device)
+    return emcid_test_imgnet_mend(
+        comps, scorer, hparams, args.hparam, num_edit=args.num_edit,
+        method=args.method, mom2_weight=args.mom2_weight,
+        edit_weight=args.edit_weight, data_dir=args.data_dir,
+        cache_dir=args.cache_dir, results_dir=args.results_dir,
+        gen_kwargs=gen_kwargs,
+        specificity_classes=args.specificity_classes,
+        apply_kwargs=dict(
+            stats_dir=args.stats_dir, mesh=mesh,
+            num_inference_steps=gen_kwargs["num_inference_steps"]),
+        timings=timings,
+    )
+
+
+def cmd_debias(args, timings=None):
+    """Gender debias of the first ``--num_requests`` professions; returns
+    the edit's outputs (UCE: components, weights, initial and final ratios;
+    EMCID: components, deltas, factors)."""
+    from emcid_torch.dsets import DebiasRequestDataset
+
+    comps, hparams, gen_kwargs, mesh = _setup(args, timings)
+    ds = DebiasRequestDataset(data_dir=args.data_dir)
+    requests = (ds.requests[: args.num_requests] if args.num_requests
+                else ds.requests)
+    scorer = _clip_scorer(args, comps)
+    t0 = time.time()
+    if args.method == "uce":
+        # iterative UCE ratio-feedback loop (reference uce_train.py:597-843)
+        from emcid_torch.engine.uce import edit_model_debias
+
+        out = edit_model_debias(
+            comps, scorer,
+            [r["source"] for r in requests],
+            [r["dests"] for r in requests],
+            max_iters=args.max_iter, num_samples=args.num_samples,
+            gen_kwargs=gen_kwargs, mesh=mesh,
+        )
+        _, _, init_ratios, ratios = out
+        print("init ratios:", [np.round(r, 3).tolist() for r in init_ratios])
+        print("final ratios:", [np.round(r, 3).tolist() for r in ratios])
+    else:
+        from emcid_torch.engine.debias import apply_emcid_to_text_encoder_debias
+
+        out = apply_emcid_to_text_encoder_debias(
+            comps, requests, hparams, scorer,
+            mom2_weight=args.mom2_weight, edit_weight=args.edit_weight,
+            cache_name=(f"{args.cache_dir}/{args.hparam}/debias/"
+                        if args.cache_dir else None),
+            max_iter=args.max_iter, num_samples=args.num_samples,
+            gen_kwargs=gen_kwargs, stats_dir=args.stats_dir, mesh=mesh,
+            num_inference_steps=gen_kwargs["num_inference_steps"],
+        )
+        print("factors:", out[2])
+    if timings is not None:
+        timings["edit"] = time.time() - t0
+    return out
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        description=__doc__.splitlines()[0],
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("aice")
+    _add_common(p)
+    p.add_argument("--edit_nums", default="1,5,10")
+    p.add_argument("--dataset", default="imgnet_aug")
+    p.add_argument("--specificity_classes", type=int, default=None)
+    p.add_argument("--vit_checkpoint", default=None)
+
+    for name in ("road", "timed"):
+        p = sub.add_parser(name)
+        _add_common(p)
+        p.add_argument("--seed_num", type=int, default=1)
+        p.add_argument("--num_requests", type=int, default=None)
+        p.add_argument("--oracle", action="store_true")
+        p.add_argument("--method", default="emcid",
+                       choices=["emcid", "contrast"])
+
+    p = sub.add_parser("artists")
+    _add_common(p)
+    p.add_argument("--num_artists", type=int, default=10)
+    p.add_argument("--dest", default="art")
+
+    p = sub.add_parser("debias")
+    _add_common(p)
+    p.add_argument("--num_requests", type=int, default=None)
+    p.add_argument("--max_iter", type=int, default=10)
+    p.add_argument("--num_samples", type=int, default=25)
+    p.add_argument("--clip_checkpoint", default=None)
+    p.add_argument("--method", default="emcid", choices=["emcid", "uce"])
+
+    p = sub.add_parser("validate")
+    _add_common(p)
+    p.add_argument("--goldens", default=None)
+    p.add_argument("--make_self_goldens", default=None)
+    p.add_argument("--f32", action="store_true")
+
+    p = sub.add_parser("certify_levers")
+    _add_common(p)
+    p.add_argument("--goldens", default=None)
+    p.add_argument("--n_concepts", type=int, default=4)
+
+    p = sub.add_parser("validate_openclip")
+    p.add_argument("--checkpoint", required=True)
+    p.add_argument("--goldens", required=True)
+    p.add_argument("--act", default="gelu", choices=["gelu", "quick_gelu"])
+    p.add_argument("--vision_heads", type=int, default=None)
+
+    p = sub.add_parser("coco")
+    _add_common(p)
+    p.add_argument("--sub", type=int, default=None)
+    p.add_argument("--tag", default="sd_orig")
+    p.add_argument("--batch_size", type=int, default=16)
+    p.add_argument("--fid_ref_dir", default=None)
+    p.add_argument("--inception_weights", default=None)
+
+    p = sub.add_parser("i2p")
+    _add_common(p)
+    p.add_argument("--num_requests", type=int, default=None)
+    p.add_argument("--tag", default="post_edit")
+    p.add_argument("--detector_cmd", default=None)
+    p.add_argument("--detections_csv", default=None)
+
+    p = sub.add_parser("mend")
+    _add_common(p)
+    p.add_argument("--num_edit", type=int, default=140)
+    p.add_argument("--method", default="emcid", choices=["emcid", "uce"])
+    p.add_argument("--specificity_classes", type=int, default=None)
+    p.add_argument("--vit_checkpoint", default=None)
+
+    p = sub.add_parser("layer_stats")
+    _add_common(p)
+    p.add_argument("--layers", default="0-11")
+    p.add_argument("--sample_size", type=int, default=100000)
+    p.add_argument("--captions_file", default=None)
+
+    p = sub.add_parser("sequential")
+    _add_common(p)
+    p.add_argument("--sample_num", type=int, default=10)
+
+    p = sub.add_parser("plots")
+    p.add_argument("--figure", required=True,
+                   choices=["artists", "coco", "debias_ratios",
+                            "edit_weight_ablation", "token_ablation",
+                            "layer_ablation"])
+    p.add_argument("--out", required=True)
+    p.add_argument("--summary", action="append")
+    p.add_argument("--csv")
+    p.add_argument("--glob")
+    p.add_argument("--orig_summary", default=None)
+    p.add_argument("--max_x", type=int, default=300)
+    p.add_argument("--plot_lpips", action="store_true")
+    p.add_argument("--direction", default="vertical",
+                   choices=["vertical", "horizontal"])
+    p.add_argument("--num_edit", type=int, default=None)
+    return parser
+
+
+def main(argv=None, timings: Optional[Dict[str, float]] = None):
+    """Run the subcommand of ``argv``; returns what it returns.
+    ``timings`` (when given) collects the seconds of each phase ("load",
+    the harness's "pre_edit_eval", "edit", "post_edit_eval",
+    "generation", "scoring") and the image counts."""
+    args = build_parser().parse_args(argv)
+    if args.cmd == "aice":
+        return cmd_aice(args, timings)
+    if args.cmd == "mend":
+        return cmd_mend(args, timings)
+    if args.cmd == "debias":
+        return cmd_debias(args, timings)
+    raise NotImplementedError(
+        f"workflows {args.cmd} on the port waits for ROADMAP "
+        f"{WAITING[args.cmd]}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,11 +1,14 @@
-"""Stage-1 variants: the SLD-supervised z of a global (NSFW) concept.
+"""Stage-1 variants beyond the standard noise-loss objective.
 
-Counterpart of the SLD part of ``emcid_tpu/engine/compute_z_variants.py``:
-training images are generated under Safe Latent Diffusion guidance (the
-sampler steered away from the unsafe concept), then the standard
-ablate-style optimization pulls the source representation toward
-reproducing those safe images.  ``compute_z_refact`` (the contrastive
-variant) waits with ``engine/clip_edit.py`` (ROADMAP M9).
+Counterpart of ``emcid_tpu/engine/compute_z_variants.py``:
+
+* ``sld_sample_latents`` + ``compute_z_text_encoder_global``: the
+  SLD-supervised z of a global (NSFW) concept.  Training images are
+  generated under Safe Latent Diffusion guidance (the sampler steered away
+  from the unsafe concept), then the standard ablate-style optimization
+  pulls the source representation toward reproducing those safe images.
+* ``compute_z_refact``: the ReFACT-style contrastive z on the pooled text
+  embedding (no UNet), with the same Adam as ``ZOptimizer``.
 """
 
 from __future__ import annotations
@@ -16,6 +19,9 @@ import numpy as np
 import torch
 
 from emcid_torch.engine.compute_z import (
+    ADAM_B1,
+    ADAM_B2,
+    ADAM_EPS,
     ZOptimizer,
     concept_batch_to_device,
     prepare_concept_batch,
@@ -150,3 +156,86 @@ def compute_z_text_encoder_global(
                  else "n/a (0 steps)")
         print(f"global z opt final loss {final}")
     return zs.cpu().numpy()[0]
+
+
+def compute_z_refact(
+    components,
+    request: Dict,
+    hparams,
+    layer: int,
+    clip_text_model=None,
+    rng: Optional[torch.Generator] = None,
+    verbose: bool = True,
+) -> np.ndarray:
+    """ReFACT-style contrastive z (reference compute_z_refact,
+    compute_z.py:1991-2175): a delta at the edit token of layer ``layer``
+    so that the edited prompts' pooled embeddings win a distance-softmax
+    over [dest] + negatives, plus ``v_weight_decay * |delta| / |z0|^2``;
+    Adam at ``v_lr`` for ``v_num_grad_steps`` with the L2-ball projection
+    ``|delta| <= clamp_norm_factor * |z0|`` after each step.
+
+    The embedding space is the text tower of ``components`` (with its
+    projection where it has one), or ``clip_text_model``.  ``components``
+    needs only ``tokenizer`` and ``text_encoder``.  The objective draws no
+    random numbers; ``rng`` is taken for the signature's sake.  Returns
+    z0 + delta (H,) on the host."""
+    del rng
+    hp = hparams
+    tok = components.tokenizer
+    text = clip_text_model or components.text_encoder
+    dev = next(text.parameters()).device
+
+    src_prompts = [p.format(request["source"]) for p in request["prompts"]]
+    enc = tok(src_prompts, padding="max_length", truncation=True,
+              max_length=tok.model_max_length)
+    ids = torch.as_tensor(enc["input_ids"], device=dev).long()
+    P, S = ids.shape
+    mask = np.zeros((P, S), np.float32)
+    for p in range(P):
+        n_real = int(np.asarray(enc["attention_mask"][p]).sum())
+        _, end = find_token_range(tok, np.asarray(enc["input_ids"][p][:n_real]),
+                                  request["source"])
+        mask[p, end - 1] = 1.0
+    mask = torch.as_tensor(mask, device=dev)
+
+    dest_texts = [request["dest"]] + list(request.get("negative_prompts") or [])
+    d_enc = tok(dest_texts, padding="max_length", truncation=True,
+                max_length=tok.model_max_length)
+    with torch.no_grad():
+        dest_pooled = text(torch.as_tensor(d_enc["input_ids"], device=dev)
+                           .long()).pooled_output.float()
+        out0 = text(ids[:1], capture=("layer_out",), stop_at_layer=layer)
+        z0 = (out0.taps["layer_out"][layer][0].float()
+              * mask[0][:, None]).sum(0)
+        z0n = z0.norm()
+
+    H = z0.shape[-1]
+    delta = torch.zeros(H, device=dev, requires_grad=True)
+    m1 = torch.zeros_like(delta)
+    m2 = torch.zeros_like(delta)
+    max_norm = hp.clamp_norm_factor * z0n
+    losses = []
+    for step in range(hp.v_num_grad_steps):
+        inj = mask[..., None] * delta[None, None, :]
+        pooled = text(ids, inject_layer=layer,
+                      inject_delta=inj).pooled_output.float()  # (P, H')
+        # negative-distance logits (the reference's -cdist)
+        d = (pooled[:, None, :] - dest_pooled[None, :, :]).norm(dim=-1)
+        nll = -torch.log_softmax(-d, dim=-1)[:, 0].mean()
+        reg = (hp.v_weight_decay * torch.sqrt(delta.pow(2).sum() + 1e-12)
+               / z0n ** 2)
+        loss = nll + reg
+        grad, = torch.autograd.grad(loss, delta)
+        with torch.no_grad():
+            m1.mul_(ADAM_B1).add_(grad, alpha=1 - ADAM_B1)
+            m2.mul_(ADAM_B2).addcmul_(grad, grad, value=1 - ADAM_B2)
+            n = step + 1
+            upd = (m1 / (1 - ADAM_B1 ** n)) / (
+                torch.sqrt(m2 / (1 - ADAM_B2 ** n)) + ADAM_EPS)
+            delta -= float(hp.v_lr) * upd
+            delta *= torch.clamp(max_norm / delta.norm().clamp_min(1e-12),
+                                 max=1.0)
+        losses.append(float(loss.detach()))
+    if verbose and losses:
+        print(f"refact z opt: nll {losses[0]:.4f} -> {losses[-1]:.4f}")
+    return (z0 + delta.detach()).cpu().numpy()

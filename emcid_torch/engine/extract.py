@@ -98,3 +98,20 @@ def per_request_mean(x: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
     """(P, T, D), (R, P) -> (R, T, D) prompt mean per request, full f32."""
     with precise_matmuls():
         return torch.einsum("rp,ptd->rtd", seg, x.float())
+
+
+@torch.no_grad()
+def module_io_at_words(model, batch: RequestBatch, layer: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fc2 (input, output) at the fact tokens, prompt-averaged per request:
+    (keys (R, T, in_dim), values (R, T, out_dim)) f32."""
+    dev = next(model.parameters()).device
+    out = model(torch.as_tensor(batch.input_ids, device=dev).long(),
+                capture=("fc2_in", "fc2_out"), stop_at_layer=layer)
+    lookup = torch.as_tensor(batch.lookup_indices, device=dev).long()
+    seg = torch.as_tensor(batch.seg_matrix, device=dev)
+    keys = per_request_mean(gather_at_tokens(out.taps["fc2_in"][layer],
+                                             lookup), seg)
+    vals = per_request_mean(gather_at_tokens(out.taps["fc2_out"][layer],
+                                             lookup), seg)
+    return keys, vals

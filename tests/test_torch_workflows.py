@@ -1,0 +1,210 @@
+"""PyTorch port, ``emcid_torch.cli.workflows``: the ``aice``, ``mend`` and
+``debias`` subcommands with ``--tiny --platform cpu`` on a synthetic
+request tree write their outputs (the summary JSONs; the debias edits'
+factors and ratios); without ``--platform cpu`` on a host with no card
+each raises; the JAX CLI's other subcommands stay in the parser and raise
+``NotImplementedError`` naming their ROADMAP item."""
+
+import csv
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from emcid_torch.cli import workflows
+from emcid_torch.evals.scorers import make_vit_scorer
+
+from torch_parity import one_torch_thread  # noqa: F401
+
+HP = "tiny-hp"
+
+
+@pytest.fixture(scope="module")
+def tree(tmp_path_factory):
+    """ICEB edit/test files, the mend files, a 2-row TIMED gender CSV and
+    an hparams JSON, in the parsers' formats."""
+    from emcid_torch.hparams import EMCIDHyperParams
+
+    root = tmp_path_factory.mktemp("wf")
+    iceb = root / "data" / "iceb_data"
+    iceb.mkdir(parents=True)
+    rows, idx = [], 0
+    for cls, cid, dest, did in [("cat", 0, "dog", 1), ("w3", 2, "w4", 3)]:
+        for _ in range(5):
+            rows.append({"class name": cls,
+                         "text prompt": f"an image of a {{}} v{idx}",
+                         "random seed": 100 + idx, "idx": idx,
+                         "class id": cid, "checked": True, "dest": dest,
+                         "dest id": did})
+            idx += 1
+    (iceb / "imgnet_aug_edit.json").write_text(json.dumps(rows))
+    (iceb / "imgnet_aug_test.json").write_text(json.dumps(
+        [{"class name": "w9", "text prompt": f"a photo of w9 n{i}",
+          "random seed": 55 + i, "idx": i, "class id": 5} for i in range(3)]))
+    (iceb / "vit_classifier_config.json").write_text(json.dumps(
+        {"id2label": {"0": "cat, kitty", "2": "w3"}}))
+    (iceb / "imgnet_prompts_cls.json").write_text(json.dumps(
+        {"0": {"cat": {"mean": 0.8, "std": 0.1, "number": 8},
+               "kitty": {"mean": 0.05, "std": 0.01, "number": 8}}}))
+    (iceb / "imgnet_aug_full.json").write_text(json.dumps(
+        [{"class name": "cat", "text prompt": f"an image of cat {i}",
+          "random seed": 100 + i, "idx": i, "class id": 0}
+         for i in range(3)]))
+    deb = root / "data" / "debias"
+    deb.mkdir()
+    with open(deb / "TIMED_gender_test_set_processed.csv", "w",
+              newline="") as f:
+        w = csv.DictWriter(f, fieldnames=["female", "male", "old", "new",
+                                          "validation", "ex1", "ex2", "ex3",
+                                          "ex4", "ex5"])
+        w.writeheader()
+        for p in ("nurse", "doctor"):
+            w.writerow({"female": f"a female {p}", "male": f"a male {p}",
+                        "old": f"a {p}", "new": f"a female {p}",
+                        "validation": f"A photo of a {p}",
+                        **{f"ex{i}": f"a {p} {i}" for i in range(1, 6)}})
+    hp = EMCIDHyperParams.from_dict({
+        "layers": [9, 10], "clamp_norm_factor": 1.5,
+        "layer_selection": "all", "fact_token": "subject_last",
+        "v_num_grad_steps": 20, "v_lr": 0.1, "v_weight_decay": 5e-4,
+        "mom2_adjustment": True, "mom2_update_weight": 100,
+        "rewrite_module_tmp": "text_model.encoder.layers.{}.mlp.fc2",
+        "layer_module_tmp": "text_model.encoder.layers.{}",
+        "mlp_module_tmp": "text_model.encoder.layers.{}.mlp",
+        "attn_module_tmp": "text_model.encoder.layers.{}.self_attn",
+        "ln_f_module": "text_model.final_layer_norm",
+        "mom2_dataset": "ccs_filtered", "mom2_n_samples": 30,
+        "mom2_dtype": "float32", "objective": "ablate-dest",
+        "esd_mu": "None"})
+    (root / "hparams").mkdir()
+    (root / "hparams" / f"{HP}.json").write_text(
+        hp.to_json(root / "hparams").read_text())
+    return root
+
+
+def _argv(tree, tmp_path, cmd, *extra, platform="cpu"):
+    argv = [cmd, "--tiny", "--hparam", HP,
+            "--hparams_dir", str(tree / "hparams"),
+            "--data_dir", str(tree / "data"),
+            "--cache_dir", str(tmp_path / "cache"),
+            "--results_dir", str(tmp_path / "results"),
+            "--stats_dir", str(tmp_path / "stats"), "--steps", "2", *extra]
+    return argv + (["--platform", platform] if platform else [])
+
+
+def test_aice_tiny_cpu_writes_summary(tree, tmp_path):
+    """Edits remapped into the tiny encoder's depth (layers 2-3, 4 Stage-1
+    steps at most), one record per --edit_nums entry under its key."""
+    timings = {}
+    records = workflows.main(_argv(tree, tmp_path, "aice", "--edit_nums",
+                                   "2,1"), timings=timings)
+    summary = json.loads((tmp_path / "results" / "emcid" / HP
+                          / "imgnet_aug_summary.json").read_text())
+    assert set(summary) == {"edit2_weight100", "edit1_weight100"}
+    assert [summary["edit2_weight100"], summary["edit1_weight100"]] == records
+    for rec in records:
+        assert len([k for k in rec if k.startswith(("pre_", "post_"))]) == 20
+        assert rec["edit_time_s"] > 0
+    assert {"load", "pre_edit_eval", "edit", "post_edit_eval", "generation",
+            "scoring"} <= set(timings)
+    assert any(p.name.startswith("train_cat_pre_") for p in
+               (tmp_path / "cache" / "images" / "imgnet_aug").glob("*.png"))
+
+
+@pytest.mark.parametrize("method,folder,key", [
+    ("emcid", f"emcid/{HP}", "edit2_weight100"),
+    ("uce", "baselines/uce", "edit2")])
+def test_mend_tiny_cpu_writes_summary(tree, tmp_path, method, folder, key):
+    record = workflows.main(_argv(tree, tmp_path, "mend", "--method", method,
+                                  "--num_edit", "2"))
+    path = tmp_path / "results" / folder / "imgnet_mend_summary.json"
+    assert json.loads(path.read_text())[key] == record
+    assert len([k for k in record if k.startswith(("pre_", "post_"))]) == 10
+
+
+def test_debias_emcid_tiny_cpu(tree, tmp_path, capsys):
+    edited, deltas, factors = workflows.main(_argv(
+        tree, tmp_path, "debias", "--method", "emcid", "--num_requests", "1",
+        "--max_iter", "2", "--num_samples", "2"))
+    assert len(factors) == 1 and abs(sum(factors[0]) - 1.0) <= 1e-9
+    assert set(deltas) == {f"text_model.encoder.layers.{i}.mlp.fc2.weight"
+                           for i in (2, 3)}
+    assert "factors:" in capsys.readouterr().out
+    assert list((tmp_path / "cache" / HP / "debias").glob("*.npz"))
+
+
+def test_debias_uce_tiny_cpu(tree, tmp_path, capsys):
+    edited, weights, init_ratios, ratios = workflows.main(_argv(
+        tree, tmp_path, "debias", "--method", "uce", "--num_requests", "2",
+        "--max_iter", "2", "--num_samples", "2"))
+    assert len(init_ratios) == len(ratios) == 2
+    for r in ratios:
+        assert np.isclose(r.sum(), 1.0)
+    out = capsys.readouterr().out
+    assert "init ratios:" in out and "final ratios:" in out
+
+
+@pytest.mark.parametrize("cmd", ["aice", "mend", "debias"])
+def test_default_platform_wants_the_card(tree, tmp_path, cmd):
+    """``--tiny`` does not switch to the CPU: the default platform is the
+    card, and with none present the subcommand raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default platform would run")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        workflows.main(_argv(tree, tmp_path, cmd, platform=None))
+
+
+@pytest.mark.parametrize("cmd", sorted(workflows.WAITING))
+def test_other_subcommands_name_their_roadmap_item(tmp_path, cmd):
+    argv = [cmd]
+    if cmd == "plots":
+        argv += ["--figure", "coco", "--out", str(tmp_path / "f.png")]
+    elif cmd == "validate_openclip":
+        argv += ["--checkpoint", "c.pt", "--goldens", "g.npz"]
+    with pytest.raises(NotImplementedError, match="ROADMAP M1[23]"):
+        workflows.main(argv)
+
+
+def test_scorer_checkpoints_load(tmp_path, monkeypatch):
+    """``--vit_checkpoint`` and ``--clip_checkpoint`` take HF state dicts
+    saved with ``torch.save`` (here at tiny widths: the ViT-B/16 and
+    ViT-L/14 configs are swapped for tiny ones): the loaded scorers give
+    the saved towers' outputs."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    from emcid_torch.models import configs, vision
+    from emcid_torch.models.clip_text import CLIPTextEncoder
+    from emcid_torch.models.loader import build_tiny_pipeline
+
+    comps = build_tiny_pipeline(seed=0, device="cpu")
+    tiny_vit = dataclasses.replace(vision.TINY_VIT, num_labels=1000)
+    tiny_clip = dataclasses.replace(vision.TINY_CLIP_VISION,
+                                    projection_dim=768)
+    monkeypatch.setattr(vision, "VIT_BASE_224", tiny_vit)
+    monkeypatch.setattr(vision, "CLIP_VIT_L14_VISION", tiny_clip)
+    monkeypatch.setattr(configs, "SD_V14_TEXT", comps.text_encoder.config)
+
+    vit = vision.build_random_vit(tiny_vit, seed=1, device="cpu")
+    torch.save(vit.state_dict(), tmp_path / "vit.pt")
+    tower = vision.build_random_clip_vision(tiny_clip, seed=2, device="cpu")
+    text = CLIPTextEncoder(dataclasses.replace(comps.text_encoder.config,
+                                               projection_dim=768))
+    torch.save({**tower.state_dict(), **text.state_dict()},
+               tmp_path / "clip.pt")
+
+    imgs = np.random.RandomState(0).randint(0, 256, (2, 40, 40, 3)
+                                            ).astype(np.uint8)
+    scorer = workflows._vit_scorer(
+        SimpleNamespace(vit_checkpoint=str(tmp_path / "vit.pt")), "cpu")
+    np.testing.assert_array_equal(
+        scorer.probs(imgs), make_vit_scorer(
+            tiny_vit, torch_state_dict=vit.state_dict(),
+            device="cpu").probs(imgs))
+    clip = workflows._clip_scorer(SimpleNamespace(
+        clip_checkpoint=str(tmp_path / "clip.pt"), tiny=False), comps)
+    ref = vision.CLIPScorer(text.eval(), tower, comps.tokenizer)
+    texts = ["a photo of a cat", "dog"]
+    torch.testing.assert_close(clip.logits_per_image(imgs, texts),
+                               ref.logits_per_image(imgs, texts))

@@ -7,6 +7,7 @@ import dataclasses
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from emcid_torch.models import configs as tcfg
@@ -46,3 +47,16 @@ def rel_diff(a, b, norm: str = "max") -> float:
     if norm == "fro":
         return float(np.linalg.norm(a - b) / max(np.linalg.norm(a), 1e-30))
     return float(np.abs(a - b).max() / max(np.abs(a).max(), 1e-30))
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Run a test on one intra-op thread.  The tiny models' ops are too
+    small to split, and under pytest-xdist every worker would otherwise
+    start a thread per core, which makes the tiny ops wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
