@@ -8,7 +8,7 @@ Phases, each printing one JSON line:
 
 1. device: the card, its power limit, the kernel build time;
 2. one phase per hand-written kernel (K1-K6) at the shapes the main paths
-   give it: the kernel against its plain PyTorch version on the same
+   give it (the SD-v1.4 shapes first, then K1-K4 at SDXL's): the kernel against its plain PyTorch version on the same
    inputs (bf16 at the product shapes, f32 and bf16 at small ragged
    shapes; the norm kernels also through their autograd.Function against
    autograd of the plain math), and the kernel's, the plain version's and
@@ -64,10 +64,28 @@ Phases, each printing one JSON line:
    K/V projections for UCE), the ViT in f32 on the card against float64
    on the host, the debias UCE and the clip_edit Stage-2 solves against
    float64, the debias factors a distribution, the tensor-core routes of
-   K1-K4 (and, with the knobs, K5b ``resident`` and K6b ``rows``).
+   K1-K4 (and, with the knobs, K5b ``resident`` and K6b ``rows``);
+8. SDXL at full width (CLIP-L, OpenCLIP bigG, the 2.6B text_time UNet and
+   the SDXL VAE, 3.47B parameters, random bf16 weights from seed 0) at
+   1024 px: the UNet with attention through the kernels against the plain
+   path, in bf16 (eps and the gradients into the context and
+   ``text_embeds``) and in f32 with both norm knobs at 1 (K5b's ``stream``
+   route on 163,840-element spans); then ``sdxl_path``: the CLI's SDXL leg
+   (``--random-init``, 2 concepts x 3 prompts, 10 Stage-1 steps, CLIP-L
+   layers 7-10 and bigG layers 27-30, DDIM-10 training images, 1 val
+   prompt before and after), with the launches of every kernel and route,
+   the phase seconds, Stage-1 seconds per step and TFLOP/s
+   (``emcid_torch.profiling``), peak memory and checks (finite z and
+   deltas, only each encoder's edit-layer fc2 weights changed, the UNet and
+   VAE unchanged, both encoders' Stage-2 solves against float64, 1024x1024
+   uint8 images, K1 ``mma`` and ``d512`` and K2-K4 ``mma`` taken, no
+   ``fma``); one Stage-1 step under ``torch.profiler`` (busy, idle share,
+   the hand-written kernels' share, the top device ops); and the same CLI
+   call again, which must read the two-file z cache, generate no training
+   image and launch no K2 or K3.
 
-Then the kernel table line (launches from the CLI path and from the
-evaluation path's mend run), the card's name
+Then the kernel table line (launches from the CLI path, from the
+evaluation path's mend run and from the SDXL path), the card's name
 and power limit, and, last, the device line the harness reads.
 Exits non-zero, and prints no result, when there is no CUDA device, when
 the port cannot be imported, or when any phase fails.
@@ -685,7 +703,12 @@ def kernel_phases(torch, failures):
         ((1, 300, 1, 512), bf),
         ((24, 2304, 8, 40), bf), ((12, 2304, 1, 512), bf),
         ((4, 2304, 1, 512), bf), ((2, 4096, 1, 512), bf),
-        ((24, 4096, 8, 40), bf), ((4, 1024, 8, 80), bf)], failures)
+        ((24, 4096, 8, 40), bf), ((4, 1024, 8, 80), bf),
+        # SDXL at 1024 px: the UNet's self-attention at levels 1 and 2 (head
+        # dim 64) in CFG training-image generation (6 images), the VAE
+        # mid-block over 128x128 tokens (decode and re-encode of 6 images)
+        ((12, 4096, 10, 64), bf), ((12, 1024, 20, 64), bf),
+        ((6, 16384, 1, 512), bf)], failures)
     # K2/K3: ragged f32 (fma route) and bf16 (mma; N = M = 300 is not a
     # multiple of 64) shapes; the level-0 Stage-1 shape; the 512-px Stage-1
     # levels 0 and 1 (EMCID_TPU_TRAIN_RES=0)
@@ -694,14 +717,21 @@ def kernel_phases(torch, failures):
                                     ((2, 300, 2, 40), bf), ((2, 300, 2, 80), bf),
                                     ((12, 2304, 8, 40), bf),
                                     ((12, 4096, 8, 40), bf),
-                                    ((12, 1024, 8, 80), bf)], failures)
+                                    ((12, 1024, 8, 80), bf),
+                                    # SDXL Stage 1: one concept's 3 prompts
+                                    # at levels 1 and 2 (head dim 64)
+                                    ((3, 4096, 10, 64), bf),
+                                    ((3, 1024, 20, 64), bf)], failures)
     # K4: ragged f32 (fma) and bf16 (mma; M = 200 takes three key chunks
     # and the online rescale); the level-0 cross-attention; 512 px levels 0
     # and 1
     rows += phase_short_kv(torch, [
         ((2, 300, 77, 2, 40), f32), ((2, 300, 77, 2, 40), bf),
         ((2, 300, 200, 2, 40), bf), ((24, 2304, 77, 8, 40), bf),
-        ((4, 4096, 77, 8, 40), bf), ((4, 1024, 77, 8, 80), bf)], failures)
+        ((4, 4096, 77, 8, 40), bf), ((4, 1024, 77, 8, 80), bf),
+        # SDXL: levels 1 and 2 over the 77-token context (CFG generation)
+        ((12, 4096, 77, 10, 64), bf), ((12, 1024, 77, 20, 64), bf)],
+        failures)
     # (B, S, C, G, eps), dtype, K5b's route: the level-0 resnet norm of
     # training-image generation (CFG batch 24); the Stage-1 backward's
     # level-0 norms over 320 and 640 channels and the up-path concat over
@@ -1705,12 +1735,386 @@ def eval_path(torch, tmp: Path, ckpt, failures):
     return rows
 
 
-def kernel_table(rows, launches, routes, eval_run):
+# ---------------------------------------------------------------------------
+# SDXL (full width, 1024 px): the model checks, the CLI's SDXL leg, one
+# profiled Stage-1 step and the cached second call
+# ---------------------------------------------------------------------------
+
+SDXL_REQUESTS = REQUESTS[:2]
+SDXL_VAL_PROMPTS = ["a photo of a w0"]
+# CLIP-L: the bench's layers 7-10, ending at the context tap (layer_out of
+# layer 10 = n - 2).  bigG: its four layers ending at its own tap (layer
+# 30 of 32); the reference's SDXL hparams are not in the repo
+SDXL_LAYERS_2 = [27, 28, 29, 30]
+SDXL_RES = 1024
+# the hand-written kernels in a profiler trace: the demangled names of the
+# kernels of emcid_torch/csrc (each in an anonymous namespace)
+OWN_KERNEL_NAMES = tuple(
+    f"namespace)::{k}" for k in (
+        "fwd_mma_kernel", "fwd_d512_kernel", "fwd_kernel", "dq_mma_kernel",
+        "dq_kernel", "dkv_mma_kernel", "dkv_kernel", "short_kv_mma_kernel",
+        "short_kv_kernel", "gn_fwd_kernel", "gn_bwd_kernel", "ln_fwd_kernel",
+        "ln_bwd_kernel"))
+
+
+def sdxl_hparams(grad_steps: int):
+    """The bench's edit settings on both SDXL encoders, the text-repr term
+    on."""
+    from emcid_torch.hparams import EMCIDXLHyperParams
+
+    return EMCIDXLHyperParams.from_dict({
+        "layers": [7, 8, 9, 10], "layers_2": SDXL_LAYERS_2,
+        "clamp_norm_factor": 1.5, "layer_selection": "all",
+        "fact_token": "subject_last", "v_num_grad_steps": grad_steps,
+        "v_lr": 0.2, "v_weight_decay": 5e-4, "mom2_adjustment": True,
+        "mom2_update_weight": 4000, "mom2_update_weight_2": 4000,
+        "rewrite_module_tmp": "text_model.encoder.layers.{}.mlp.fc2",
+        "layer_module_tmp": "text_model.encoder.layers.{}",
+        "mlp_module_tmp": "text_model.encoder.layers.{}.mlp",
+        "attn_module_tmp": "text_model.encoder.layers.{}.self_attn",
+        "ln_f_module": "text_model.final_layer_norm",
+        "mom2_dataset": "ccs_filtered", "mom2_n_samples": 100000,
+        "mom2_dtype": "float32", "objective": "ablate-dest",
+        "esd_mu": "None", "cal_text_repr_loss": True,
+        "text_repr_loss_scale_factor": 0.01,
+    })
+
+
+def build_sdxl(torch):
+    """The full-width SDXL pipeline, random bf16 weights from seed 0 (the
+    one ``--random-init --seed 0`` builds): (components, seconds)."""
+    from emcid_torch.models.sdxl import build_random_sdxl_pipeline
+
+    t0 = time.time()
+    comps = build_random_sdxl_pipeline(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    return comps, time.time() - t0
+
+
+def sdxl_model_checks(torch, comps, failures):
+    """The SDXL UNet at 128x128 latents (1024 px) and a 77-token 2048-wide
+    context: (a) bf16, batch 2, attention through the kernels against
+    ``EMCID_TPU_NO_FLASH=1``, for eps and the gradient into the context and
+    ``text_embeds`` (5e-2; K1, K2, K3 and K4 on ``mma``); (b) f32, batch
+    1, with both norm knobs at 1 against the knobs at 0 and the plain
+    attention path (1e-3), which puts K5b's ``stream`` route on 163,840-
+    element (batch, group) spans.  Returns the rows."""
+    from emcid_torch.ops import _build
+    from emcid_torch.runtime import precise_matmuls
+
+    rows = []
+    for label, dtype, B, knobs, tol in (
+            ("bf16", torch.bfloat16, 2, dict.fromkeys(KNOBS), BF16_MODEL_TOL),
+            ("f32", torch.float32, 1, dict(EMCID_TPU_FUSED_GN="1",
+                                          EMCID_TPU_FUSED_LN="1"),
+             MODEL_TOL)):
+        unet = comps.unet if dtype == torch.bfloat16 else \
+            copy.deepcopy(comps.unet).float()
+        g = torch.Generator(device="cuda").manual_seed(11)
+        mk = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dtype)
+        x, ctx0, te0 = mk(B, 4, 128, 128), mk(B, 77, 2048), mk(B, 1280)
+        w = mk(B, 4, 128, 128)
+        t = torch.tensor([500, 20][:B], device="cuda")
+        tids = torch.tensor([[1024.0, 1024, 0, 0, 1024, 1024]] * B,
+                            device="cuda")
+
+        def eps_and_grads():
+            ctx = ctx0.clone().requires_grad_()
+            te = te0.clone().requires_grad_()
+            eps = unet(x, t, ctx, {"text_embeds": te, "time_ids": tids}
+                       ).sample
+            gc, gt = torch.autograd.grad((eps.float() * w.float()).sum(),
+                                         (ctx, te))
+            return eps.detach(), gc, gt
+
+        with precise_matmuls() if dtype == torch.float32 else \
+                contextlib.nullcontext():
+            with environ(**knobs):
+                _build.reset_launches()
+                kern = eps_and_grads()
+                launches = dict(_build.LAUNCHES)
+                routes = copy.deepcopy(_build.ROUTES)
+            with environ(EMCID_TPU_NO_FLASH="1", **dict.fromkeys(KNOBS)):
+                plain = eps_and_grads()
+        errs = {f"{k}_rel_err": rel_err(a, b)[1] for k, a, b in zip(
+            ("eps", "ctx_grad", "text_embeds_grad"), kern, plain)}
+        row = dict(phase="model_check",
+                   what=f"sdxl UNet {label}, B={B}, 128x128, kernels vs "
+                   "plain attention" + (" and stock norms" if knobs[
+                       "EMCID_TPU_FUSED_GN"] else ""),
+                   **knobs, **errs, tolerance=tol, launches=launches,
+                   routes={k: routes[k] for k in (*BF16_ROUTES, *NORM_ROUTES)})
+        finite = all(bool(torch.isfinite(a).all()) for a in kern)
+        if dtype == torch.bfloat16:
+            used = routes_ok(routes, {k: ("mma",) for k in ATTENTION})
+        else:
+            used = (all(launches[k] > 0 for k in SOURCES)
+                    and routes["K5b groupnorm_bwd"]["stream"] > 0)
+        row["ok"] = all(e <= tol for e in errs.values()) and finite and used
+        emit(row)
+        rows.append(row)
+        if not row["ok"]:
+            failures.append(f"SDXL model check {label}: {row}")
+        del unet, kern, plain
+        torch.cuda.empty_cache()
+    return rows
+
+
+def sdxl_cli(torch, argv):
+    """One in-process CLI call: (edited, deltas, row of its seconds, phase
+    seconds, launches, routes and peak memory)."""
+    from emcid_torch.cli import run_emcid
+    from emcid_torch.ops import _build
+
+    timings = {}
+    with environ(**dict.fromkeys(KNOBS)):
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() / 2 ** 30
+        _build.reset_launches()
+        t0 = time.time()
+        edited, deltas = run_emcid.main(argv, timings=timings)
+        torch.cuda.synchronize()
+        total_s = time.time() - t0
+        launches = dict(_build.LAUNCHES)
+        routes = copy.deepcopy(_build.ROUTES)
+    row = dict(total_s=total_s, **{f"{k}_s": v for k, v in timings.items()},
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+               resident_before_gb=resident, launches=launches, routes=routes)
+    return edited, deltas, row
+
+
+def sdxl_stage2_f64(torch, ref, hp, zs, stats):
+    """Each encoder's Stage-2 insert of the run (its z and the cached
+    covariances of the run's stats directory), once with the f32 solve on
+    the card and once with the host float64 solve: (a) every solve of the
+    f32 pass against the float64 solve of the same system (the check,
+    ROADMAP F1); (b) each edited layer's update from the whole f32 pass
+    against the whole float64 pass, where the keys of a later layer come
+    through the bf16 forward patched with the earlier layers' updates
+    (shown, not checked).  Relative Frobenius differences."""
+    import numpy as np
+
+    import emcid_torch.engine.emcid as emcid_mod
+    from emcid_torch.engine.sdxl import (
+        encoder_hparams_view,
+        resolve_covariances_sdxl,
+    )
+    from emcid_torch.ops.solve import solve_adj_k
+
+    covs = resolve_covariances_sdxl(ref, hp, *stats, verbose=False)
+    solve_rel, chained_rel = {}, {}
+    for which in (1, 2):
+        view = encoder_hparams_view(hp, which)
+        prefix = f"text_encoder{'_2' if which == 2 else ''}"
+        upd, calls = {}, []
+        for method in ("f32_ir", "f64"):
+            with spy(emcid_mod, "solve_adj_k",
+                     calls if method == "f32_ir" else []):
+                d, _ = emcid_mod.execute_emcid_text_encoder(
+                    ref.encoder(which), ref.tokenizer, SDXL_REQUESTS, view,
+                    zs=zs[which - 1], covs=covs[which - 1],
+                    mom2_weight=view.mom2_update_weight, solve_method=method,
+                    verbose=False)
+            upd[method] = {k: a @ r.T for k, (a, r) in d.items()}
+        for layer, call in zip(view.layers, calls):
+            (C, K, lam), _, got = call["call"]
+            want = solve_adj_k(C, K, lam, method="f64")
+            solve_rel[f"{prefix}.layer{layer}"] = float(
+                np.linalg.norm(got.double().cpu().numpy() - want)
+                / np.linalg.norm(want))
+        for k, v in upd["f64"].items():
+            chained_rel[f"{prefix}.{k}"] = float(
+                np.linalg.norm(upd["f32_ir"][k] - v) / np.linalg.norm(v))
+    return solve_rel, chained_rel
+
+
+def profile_stage1_step(torch, ref, hp):
+    """One joint Stage-1 step (2 concepts x 3 prompts at 1024 px, random
+    posterior latents, the text encoders' forwards around it included):
+    a warm-up call, one timed on the host clock, one under
+    ``torch.profiler``.  Device busy (the sum of every kernel's device
+    time; one stream), the idle share of the timed call's wall (the
+    profiler slows the host), the hand-written kernels' share of busy and
+    the top device ops."""
+    import dataclasses
+    from collections import defaultdict
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from emcid_torch.engine.sdxl import compute_z_sdxl_text_encoders
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    mean = torch.randn(2, 1, 3, 128, 128, 4, generator=g, device="cuda")
+    logvar = torch.full_like(mean, -4.0)
+    one = dataclasses.replace(hp, v_num_grad_steps=1)
+
+    def step():
+        compute_z_sdxl_text_encoders(ref, SDXL_REQUESTS, one, mean, logvar,
+                                     height=SDXL_RES, width=SDXL_RES,
+                                     verbose=False)
+        torch.cuda.synchronize()
+
+    step()
+    t0 = time.time()
+    step()
+    wall_ms = (time.time() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        step()
+        profiled_ms = (time.time() - t0) * 1e3
+    by_name = defaultdict(lambda: [0.0, 0])
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = evt.self_cuda_time_total
+        if dev_us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        by_name[evt.key][0] += dev_us / 1e3
+        by_name[evt.key][1] += evt.count
+    busy = sum(v[0] for v in by_name.values())
+    own = sum(v[0] for k, v in by_name.items()
+              if any(n in k for n in OWN_KERNEL_NAMES))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return dict(
+        step_wall_ms=wall_ms, profiled_wall_ms=profiled_ms,
+        device_busy_ms=busy,
+        device_idle_share=max(0.0, 1.0 - busy / wall_ms) if wall_ms else None,
+        own_kernels_ms=own, own_kernels_share_of_busy=own / busy if busy
+        else None,
+        top_device_ops=[dict(name=k[:100], ms=v[0], calls=v[1])
+                        for k, v in top])
+
+
+def sdxl_path(torch, tmp: Path, ref, build_s, failures):
+    """The SDXL leg of ``python -m emcid_torch.cli.run_emcid`` in-process,
+    knobs off: ``--random-init --seed 0`` (the full-width 3.47B-parameter
+    SDXL-base in bf16), 2 concepts x 3 prompts, 10 Stage-1 steps with the
+    text-repr term, CLIP-L layers 7-10 and bigG layers 27-30, DDIM-10
+    training images at guidance 7.5 (CFG interval 0.6), covariances over
+    the 2000-caption synthetic corpus in the run's stats directory, 1 val
+    prompt before and after at 1024 px; then one profiled Stage-1 step on
+    ``ref`` (the same pipeline, built by the caller) and the same CLI call
+    again on the z cache.  Returns the first call's row."""
+    import numpy as np
+    from PIL import Image
+
+    from emcid_torch.engine.sdxl import load_z_pairs
+    from emcid_torch.profiling import stage1_step_flops
+
+    tmp = tmp / "sdxl"
+    hp = sdxl_hparams(10)
+    (tmp / "hparams").mkdir(parents=True)
+    name = "sdxl-chip-smoke"
+    (tmp / "hparams" / f"{name}.json").write_text(json.dumps(hp.to_dict()))
+    out_dir = tmp / "out"
+    (tmp / "run.json").write_text(json.dumps(dict(
+        requests=SDXL_REQUESTS, hparams=name, model_ckpt="sdxl-1.0",
+        mom2_weight=4000, mom2_weight_2=4000, val_prompts=SDXL_VAL_PROMPTS,
+        out_dir=str(out_dir), sample_num=1)))
+    argv = ["--instruction_path", str(tmp / "run.json"), "--random-init",
+            "--hparams_dir", str(tmp / "hparams"),
+            "--stats_dir", str(tmp / "stats"), "--cache_dir", str(tmp / "z"),
+            "--steps", "10", "--seed", "0"]
+    edited, (d1, d2), row = sdxl_cli(torch, argv)
+    zs_1, zs_2, missing = load_z_pairs(SDXL_REQUESTS,
+                                       f"{tmp / 'z'}/{name}/", hp)
+    zs = None if missing else (np.stack(zs_1), np.stack(zs_2))
+    changed, unchanged = {}, {}
+    for part in ("text_encoder", "text_encoder_2", "unet", "vae"):
+        before = dict(getattr(ref, part).named_parameters())
+        diff = sorted(k for k, v in getattr(edited, part).named_parameters()
+                      if not torch.equal(v, before[k]))
+        if part.startswith("text"):
+            changed[part] = diff
+        else:
+            unchanged[part] = not diff
+    expect = {part: sorted(f"text_model.encoder.layers.{i}.mlp.fc2.weight"
+                           for i in layers)
+              for part, layers in (("text_encoder", hp.layers),
+                                   ("text_encoder_2", hp.layers_2))}
+    del edited
+    torch.cuda.empty_cache()
+    images = {phase: [np.asarray(Image.open(f)) for f in
+                      sorted((out_dir / phase).glob("*.png"))]
+              for phase in ("pre_edit", "post_edit")}
+    images_ok = all(
+        len(imgs) == len(SDXL_VAL_PROMPTS)
+        and all(a.dtype == np.uint8 and a.shape == (SDXL_RES, SDXL_RES, 3)
+                for a in imgs) for imgs in images.values())
+    stats = (tmp / "stats" / "sdxl" / "text1", tmp / "stats" / "sdxl" / "text2")
+    rel, chained = (sdxl_stage2_f64(torch, ref, hp, zs, stats)
+                    if zs is not None else ({}, {}))
+    steps = hp.v_num_grad_steps
+    flops = stage1_step_flops(ref.unet.config, len(SDXL_REQUESTS), 3,
+                              latent_hw=SDXL_RES // 8)
+    stage1_s = row["stage1_s"]
+    row = dict(
+        phase="sdxl_path", entry="emcid_torch.cli.run_emcid",
+        model="sdxl-1.0 (CLIP-L + OpenCLIP bigG + SDXL UNet + VAE, full "
+        "width, 3.47B parameters, random bf16 weights from seed 0)",
+        concepts=len(SDXL_REQUESTS), prompts=3, grad_steps=steps,
+        layers=hp.layers, layers_2=hp.layers_2, gen_steps=10,
+        sampler="ddim", res=SDXL_RES, val_prompts=len(SDXL_VAL_PROMPTS),
+        build_pipeline_ref_s=build_s, **row,
+        stage1_s_per_step=stage1_s / steps,
+        stage1_tflop_per_step=flops / 1e12,
+        stage1_tflops_per_s=flops * steps / stage1_s / 1e12,
+        bf16_routes_ok=routes_ok(row["routes"]),
+        z_finite=bool(zs is not None and all(np.isfinite(z).all()
+                                             for z in zs)),
+        z_shapes=[list(z.shape) for z in zs] if zs is not None else None,
+        deltas_finite=all(np.isfinite(a).all() and np.isfinite(r).all()
+                          for d in (d1, d2) for a, r in d.values()),
+        changed_params=changed, only_fc2_of_edit_layers=changed == expect,
+        unet_vae_unchanged=all(unchanged.values()),
+        stage2_solve_f32_ir_vs_f64_rel=rel,
+        stage2_rel_tolerance=SOLVE_REL_TOL,
+        stage2_chained_update_f32_ir_vs_f64_rel=chained,
+        stage2_solve_ok=bool(rel) and max(rel.values()) <= SOLVE_REL_TOL,
+        images={k: [list(a.shape) for a in v] for k, v in images.items()},
+        images_uint8_1024=images_ok)
+    row["ok"] = (row["z_finite"] and row["deltas_finite"]
+                 and row["only_fc2_of_edit_layers"]
+                 and row["unet_vae_unchanged"] and row["stage2_solve_ok"]
+                 and images_ok and row["bf16_routes_ok"]
+                 and all(row["launches"][k] > 0 for k in ATTENTION))
+    emit(row)
+    if not row["ok"]:
+        failures.append(f"SDXL path: {row}")
+
+    prof = dict(phase="sdxl_stage1_profile", concepts=len(SDXL_REQUESTS),
+                prompts=3, res=SDXL_RES, **profile_stage1_step(torch, ref, hp))
+    prof["ok"] = prof["device_busy_ms"] > 0
+    emit(prof)
+    if not prof["ok"]:
+        failures.append(f"SDXL Stage-1 profile: {prof}")
+
+    # the same call again: every z from the two-file cache, no Stage 1
+    _, (e1, e2), again = sdxl_cli(torch, argv)
+    same = all(np.allclose(a, f[k][0], rtol=1e-5, atol=1e-8)
+               and np.allclose(r, f[k][1], rtol=1e-5, atol=1e-8)
+               for d, f in ((d1, e1), (d2, e2)) for k, (a, r) in d.items())
+    again.update(phase="sdxl_path_cached", entry="emcid_torch.cli.run_emcid",
+                 no_training_images_ok="generation_s" not in again,
+                 no_backward_ok=(again["launches"]["K2 flash_v2_dq"] == 0
+                                 and again["launches"]["K3 flash_v2_dkv"] == 0),
+                 same_deltas_ok=same)
+    again["ok"] = all(v for k, v in again.items() if k.endswith("_ok"))
+    emit(again)
+    if not again["ok"]:
+        failures.append(f"SDXL path, cached call: {again}")
+    torch.cuda.empty_cache()
+    return row
+
+
+def kernel_table(rows, launches, routes, eval_run, sdxl_run):
     """One entry per kernel: the product-shape bf16 measurement of the
     first shape the main paths give it, and its launches (per route, where
     it has several) in the run that ``launches`` and ``routes`` count (the
-    CLI path), and in the evaluation path's run ``eval_run`` (mend, both
-    knobs at 1)."""
+    CLI path), in the evaluation path's run ``eval_run`` (mend, both knobs
+    at 1) and in the SDXL path's first CLI call ``sdxl_run`` (knobs
+    off)."""
     table = []
     for name, (source, replaces) in SOURCES.items():
         timed = [r for r in rows if r["kernel"] == name and "kernel_ms" in r]
@@ -1726,9 +2130,10 @@ def kernel_table(rows, launches, routes, eval_run):
         if name in routes:
             entry["route_launches"] = routes[name]
             entry["kernel_route"] = r["route"]
-        entry["eval_path_launches"] = eval_run["launches"].get(name, 0)
-        if name in eval_run["routes"]:
-            entry["eval_path_route_launches"] = eval_run["routes"][name]
+        for label, run in (("eval_path", eval_run), ("sdxl_path", sdxl_run)):
+            entry[f"{label}_launches"] = run["launches"].get(name, 0)
+            if name in run["routes"]:
+                entry[f"{label}_route_launches"] = run["routes"][name]
         table.append(entry)
     return table
 
@@ -1784,12 +2189,23 @@ def main(argv=None) -> int:
             ckpt = write_checkpoint(torch, tmp)
             launches, routes = cli_path(torch, tmp, ckpt, failures)
             evals = eval_path(torch, tmp, ckpt, failures)
+    ref, build_s = build_sdxl(torch)
+    emit(dict(phase="sdxl_build", seconds=build_s,
+              parameters=sum(p.numel() for m in (
+                  ref.text_encoder, ref.text_encoder_2, ref.unet, ref.vae)
+                  for p in m.parameters()),
+              resident_gb=torch.cuda.memory_allocated() / 2 ** 30))
+    sdxl_model_checks(torch, ref, failures)
+    with tempfile.TemporaryDirectory() as tmp:
+        sdxl = sdxl_path(torch, Path(tmp), ref, build_s, failures)
+    del ref
+    torch.cuda.empty_cache()
     if failures:
         for f in failures:
             print(f"FAILED: {f}", file=sys.stderr)
         return 1
     mend = next(r for r in evals if r["run"] == "b_mend")
-    emit({"kernels": kernel_table(rows, launches, routes, mend)})
+    emit({"kernels": kernel_table(rows, launches, routes, mend, sdxl)})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

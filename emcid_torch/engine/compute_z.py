@@ -51,6 +51,24 @@ from emcid_torch.text.token_range import find_token_range
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 
+def adam_step_(delta, m1, m2, grad, lr: float, n: int) -> None:
+    """optax ``adam(lr)`` (b1 0.9, b2 0.999, eps 1e-8), step ``n`` (from
+    1), in place on ``delta`` and its moments."""
+    m1.mul_(ADAM_B1).add_(grad, alpha=1 - ADAM_B1)
+    m2.mul_(ADAM_B2).addcmul_(grad, grad, value=1 - ADAM_B2)
+    upd = (m1 / (1 - ADAM_B1 ** n)) / (
+        torch.sqrt(m2 / (1 - ADAM_B2 ** n)) + ADAM_EPS)
+    delta -= lr * upd
+
+
+def clamp_to_ball_(delta, max_norm) -> None:
+    """In place, the L2-ball projection ``|delta[c]| <= max_norm[c]`` per
+    concept (leading axis of ``delta``)."""
+    dn = delta.reshape(delta.shape[0], -1).norm(dim=-1)
+    delta *= torch.clamp(max_norm / dn.clamp_min(1e-12), max=1.0).reshape(
+        (-1,) + (1,) * (delta.ndim - 1))
+
+
 class ConceptBatch(NamedTuple):
     """Tensors for a block of C concepts, P prompts each, T edit tokens."""
 
@@ -389,16 +407,8 @@ class ZOptimizer:
                 loss = loss + hp.txt_img_align_scale_factor * tia_w * term
             grad, = torch.autograd.grad(loss.sum(), delta)
             with torch.no_grad():
-                m1.mul_(ADAM_B1).add_(grad, alpha=1 - ADAM_B1)
-                m2.mul_(ADAM_B2).addcmul_(grad, grad, value=1 - ADAM_B2)
-                n = step + 1
-                upd = (m1 / (1 - ADAM_B1 ** n)) / (
-                    torch.sqrt(m2 / (1 - ADAM_B2 ** n)) + ADAM_EPS)
-                delta -= float(lrs[step]) * upd
-                # L2-ball projection per concept
-                dn = delta.reshape(C, -1).norm(dim=-1)
-                delta *= torch.clamp(max_norm / dn.clamp_min(1e-12),
-                                     max=1.0)[:, None, None]
+                adam_step_(delta, m1, m2, grad, float(lrs[step]), step + 1)
+                clamp_to_ball_(delta, max_norm)
             losses.append(loss.detach().mean())
         delta = delta.detach()
         losses = torch.stack(losses) if losses else torch.zeros(0, device=dev)

@@ -19,10 +19,9 @@ import numpy as np
 import torch
 
 from emcid_torch.engine.compute_z import (
-    ADAM_B1,
-    ADAM_B2,
-    ADAM_EPS,
     ZOptimizer,
+    adam_step_,
+    clamp_to_ball_,
     concept_batch_to_device,
     prepare_concept_batch,
 )
@@ -227,14 +226,8 @@ def compute_z_refact(
         loss = nll + reg
         grad, = torch.autograd.grad(loss, delta)
         with torch.no_grad():
-            m1.mul_(ADAM_B1).add_(grad, alpha=1 - ADAM_B1)
-            m2.mul_(ADAM_B2).addcmul_(grad, grad, value=1 - ADAM_B2)
-            n = step + 1
-            upd = (m1 / (1 - ADAM_B1 ** n)) / (
-                torch.sqrt(m2 / (1 - ADAM_B2 ** n)) + ADAM_EPS)
-            delta -= float(hp.v_lr) * upd
-            delta *= torch.clamp(max_norm / delta.norm().clamp_min(1e-12),
-                                 max=1.0)
+            adam_step_(delta, m1, m2, grad, float(hp.v_lr), step + 1)
+            clamp_to_ball_(delta[None], max_norm[None])
         losses.append(float(loss.detach()))
     if verbose and losses:
         print(f"refact z opt: nll {losses[0]:.4f} -> {losses[-1]:.4f}")

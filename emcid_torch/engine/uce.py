@@ -13,11 +13,11 @@ its last real token) and v = W @ (the new concept's rows); technique
 ``mom2_cov`` replaces the retain-text terms by ``p*lam2*(W C, C)``.
 
 The normal matrix (``mat2``, context x context) is the same for every
-projection: it is built once, factored once (an f32 Cholesky, with two
-steps of iterative refinement on float64 residuals), and all projections
-of one output width are solved in one batched product, under
-``precise_matmuls``.  Projections are found
-by the UNet's module names (``attn2.to_k`` / ``attn2.to_v``), in the
+projection: it is built once, factored once (an f32 Cholesky refined on
+float64 residuals until converged, ``ops.solve.refined_cholesky_solve``),
+and all projections of one output width are solved in one batched
+product, under ``precise_matmuls``.  Projections are found by the UNet's
+module names (``attn2.to_k`` / ``attn2.to_v``), in the
 reference's block order (down, up, mid), so integer ``layers_to_edit``
 select the same projections as in the JAX package.
 
@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from emcid_torch.models.pipeline import SDComponents, encode_prompts, generate
+from emcid_torch.ops.solve import refined_cholesky_solve
 from emcid_torch.runtime import precise_matmuls
 
 _BLOCK_ORDER = {"down_blocks": 0, "up_blocks": 1, "mid_block": 2}
@@ -66,25 +67,17 @@ def _aligned_context_rows(components: SDComponents, old_text: str,
             emb[1, fi_new: S - max(0, far - fi_new)])
 
 
-def _uce_solve_all(mat2: torch.Tensor, mat1_stack: torch.Tensor,
-                   refine_steps: int = 2) -> torch.Tensor:
+def _uce_solve_all(mat2: torch.Tensor, mat1_stack: torch.Tensor
+                   ) -> torch.Tensor:
     """Solve ``X mat2 = mat1`` for every (out, in) ``mat1`` of the stack
-    (L, out, in) with one f32 Cholesky of ``mat2`` -> (L, in, out) =
-    W_new^T.  Each refinement step takes the residual in float64, so the
-    f32 result reaches the float64 solve's accuracy while ``mat2`` is
-    factorable in f32 (its condition number well below 1e7)."""
-    with precise_matmuls():
-        L, out, n = mat1_stack.shape
-        # (in, L*out): every projection's right-hand sides side by side
-        rhs = mat1_stack.double().transpose(1, 2).transpose(0, 1).reshape(
-            n, L * out)
-        a64 = mat2.double()
-        fac = torch.linalg.cholesky(mat2.float())
-        x = torch.cholesky_solve(rhs.float(), fac)
-        for _ in range(refine_steps):
-            x = x + torch.cholesky_solve((rhs - a64 @ x.double()).float(),
-                                         fac)
-        return x.reshape(n, L, out).transpose(0, 1)
+    (L, out, in) with one refined f32 Cholesky of ``mat2``
+    (``ops.solve.refined_cholesky_solve``) -> (L, in, out) = W_new^T."""
+    L, out, n = mat1_stack.shape
+    # (in, L*out): every projection's right-hand sides side by side
+    rhs = mat1_stack.double().transpose(1, 2).transpose(0, 1).reshape(
+        n, L * out)
+    x = refined_cholesky_solve(mat2.double(), rhs)
+    return x.reshape(n, L, out).transpose(0, 1)
 
 
 @torch.no_grad()

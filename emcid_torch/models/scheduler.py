@@ -1,13 +1,17 @@
-"""Diffusion noise schedule and samplers (DDIM, PNDM, DPM-Solver++(2M)).
+"""Diffusion noise schedule and samplers (DDPM, DDIM, PNDM,
+DPM-Solver++(2M)).
 
 Counterpart of ``emcid_tpu/models/scheduler.py``.  ``Schedule`` holds host
 numpy tables; the steps are plain tensor functions of
 ``(state, latents, eps, t, t_prev)`` with integer timesteps, and
 ``run_sampler`` is the Python loop over them (the JAX package's
 ``scan_sampler``), including the CFG-interval split of the loop into a
-guided head and a conditional-only tail.
+guided head and a conditional-only tail.  DDIM and DPM++ read the model
+output as eps or, with ``prediction_type="v_prediction"``, as v; PNDM's
+transfer reads it as eps either way, as the JAX package's does.
 
-SD v1.x schedule: scaled_linear betas 0.00085 -> 0.012 over 1000 steps.
+SD v1.x / SDXL schedule: scaled_linear betas 0.00085 -> 0.012 over 1000
+steps.
 """
 
 from __future__ import annotations
@@ -57,6 +61,15 @@ def add_noise(schedule: Schedule, x0: torch.Tensor, noise: torch.Tensor,
             + torch.sqrt(1.0 - acp).reshape(shape) * noise)
 
 
+def velocity_target(schedule: Schedule, x0: torch.Tensor, noise: torch.Tensor,
+                    timesteps: torch.Tensor) -> torch.Tensor:
+    """v-prediction target: sqrt(acp) * eps - sqrt(1 - acp) * x0."""
+    acp = schedule.acp(x0.device)[timesteps.long()]
+    shape = (-1,) + (1,) * (x0.dim() - 1)
+    return (torch.sqrt(acp).reshape(shape) * noise
+            - torch.sqrt(1.0 - acp).reshape(shape) * x0)
+
+
 def ddim_timesteps(schedule: Schedule, num_inference_steps: int,
                    leading: bool = True) -> np.ndarray:
     """Descending inference timesteps (diffusers 'leading' spacing)."""
@@ -70,20 +83,54 @@ def ddim_timesteps(schedule: Schedule, num_inference_steps: int,
     return ts.astype(np.int32)
 
 
-def _ddim_transfer(schedule: Schedule, sample, eps, t: int, t_prev: int):
-    """x0 from (sample, eps) at t, re-noised to t_prev (f32 coefficients;
-    set_alpha_to_one=False: the final transition targets acp[0])."""
+def _ddim_transfer(schedule: Schedule, sample, eps, t: int, t_prev: int,
+                   v_prediction: bool = False):
+    """x0 from (sample, model output) at t, re-noised to t_prev (f32
+    coefficients; set_alpha_to_one=False: the final transition targets
+    acp[0]).  The output is eps, or v with ``v_prediction``."""
     acp = schedule.alphas_cumprod
     one = np.float32(1.0)
     a_t = acp[t]
     a_prev = acp[t_prev] if t_prev >= 0 else acp[0]
-    x0 = (sample - float(np.sqrt(one - a_t)) * eps) / float(np.sqrt(a_t))
+    if v_prediction:
+        sa, sb = float(np.sqrt(a_t)), float(np.sqrt(one - a_t))
+        x0 = sa * sample - sb * eps
+        eps = sa * eps + sb * sample
+    else:
+        x0 = (sample - float(np.sqrt(one - a_t)) * eps) / float(np.sqrt(a_t))
     return float(np.sqrt(a_prev)) * x0 + float(np.sqrt(one - a_prev)) * eps
+
+
+def _v_prediction(schedule: Schedule) -> bool:
+    if schedule.prediction_type not in ("epsilon", "v_prediction"):
+        raise ValueError(schedule.prediction_type)
+    return schedule.prediction_type == "v_prediction"
 
 
 def ddim_step(schedule: Schedule, latents, eps, t: int, t_prev: int):
     """Deterministic DDIM update x_t -> x_{t_prev} (eta = 0)."""
-    return _ddim_transfer(schedule, latents, eps, t, t_prev)
+    return _ddim_transfer(schedule, latents, eps, t, t_prev,
+                          _v_prediction(schedule))
+
+
+def ddpm_step(schedule: Schedule, latents, eps, t: int, noise):
+    """One ancestral DDPM update (variance_type "fixed_small"), x0
+    clipped to [-1, 1]; ``noise`` is added for t > 0."""
+    betas, acp = schedule.betas, schedule.alphas_cumprod
+    one = np.float32(1.0)
+    beta_t = betas[t]
+    a_t = one - beta_t
+    acp_t = acp[t]
+    acp_prev = acp[t - 1] if t > 0 else one
+    x0 = (latents - float(np.sqrt(one - acp_t)) * eps) / float(np.sqrt(acp_t))
+    x0 = torch.clamp(x0, -1.0, 1.0)
+    coef_x0 = float(np.sqrt(acp_prev) * beta_t / (one - acp_t))
+    coef_xt = float(np.sqrt(a_t) * (one - acp_prev) / (one - acp_t))
+    mean = coef_x0 * x0 + coef_xt * latents
+    if t == 0:
+        return mean
+    var = beta_t * (one - acp_prev) / (one - acp_t)
+    return mean + float(np.sqrt(var)) * noise
 
 
 class PNDMState(NamedTuple):
@@ -141,9 +188,10 @@ def dpmpp_step(schedule: Schedule, state: DPMState, latents, eps,
     a_t, s_t = np.sqrt(acp_t), np.sqrt(np.float32(1.0) - acp_t)
     a_p = np.sqrt(acp_p)
     s_p = np.sqrt(np.maximum(np.float32(1.0) - acp_p, np.float32(1e-20)))
-    if schedule.prediction_type != "epsilon":
-        raise NotImplementedError(schedule.prediction_type)
-    x0 = (latents - float(s_t) * eps) / float(a_t)
+    if _v_prediction(schedule):
+        x0 = float(a_t) * latents - float(s_t) * eps
+    else:
+        x0 = (latents - float(s_t) * eps) / float(a_t)
     lam_t = np.log(a_t) - np.log(s_t)
     lam_p = np.log(a_p) - np.log(s_p)
     h = lam_p - lam_t

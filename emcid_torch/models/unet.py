@@ -11,6 +11,11 @@ eps=1e-5; resnet GroupNorms eps=1e-5 and the Transformer2D input GroupNorm
 eps=1e-6; the downsampler pads (0, 1, 0, 1) then runs a VALID stride-2
 conv; ``timestep_embedding`` uses ``flip_sin_to_cos``; and
 ``attention_head_dim`` is the number of heads (the HF quirk).
+SDXL's ``addition_embed_type="text_time"`` adds ``add_embedding`` (the
+pooled text embedding and the sinusoids of the six micro-conditioning
+``time_ids``, through two linears) to the time embedding, and turns on
+``use_linear_projection`` in every Transformer2D (the SDXL convention the
+JAX package keys on the same field).
 The JAX package's ``inject=`` seams and ``sow`` taps serve the UNet edit
 modes (ROADMAP M11) and are not ported yet.
 
@@ -29,7 +34,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -247,13 +252,15 @@ class UNetOutput(NamedTuple):
 
 
 class UNet2DCondition(nn.Module):
-    """``forward(latents NCHW, timesteps (B,), context (B, S, D))`` ->
-    eps prediction NCHW."""
+    """``forward(latents NCHW, timesteps (B,), context (B, S, D)[,
+    added_cond])`` -> eps prediction NCHW.  ``added_cond`` (SDXL) holds
+    ``text_embeds`` (B, D_pool) and ``time_ids`` (B, 6)."""
 
     def __init__(self, config: UNetConfig):
         super().__init__()
-        if config.addition_embed_type is not None:
-            raise NotImplementedError("SDXL UNet (ROADMAP M10)")
+        if config.addition_embed_type not in (None, "text_time"):
+            raise ValueError(
+                f"addition_embed_type {config.addition_embed_type!r}")
         self.config = cfg = config
         ch0 = cfg.block_out_channels[0]
         temb_dim = ch0 * 4
@@ -262,11 +269,15 @@ class UNet2DCondition(nn.Module):
         n = len(cfg.block_out_channels)
         self.conv_in = nn.Conv2d(cfg.in_channels, ch0, 3, padding=1)
         self.time_embedding = _TimeEmbedding(ch0, temb_dim)
+        text_time = cfg.addition_embed_type == "text_time"
+        if text_time:
+            self.add_embedding = _TimeEmbedding(
+                cfg.projection_class_embeddings_input_dim, temb_dim)
 
         def tfm(lvl, ch):
             return Transformer2D(ch, ctx_dim, cfg.attention_head_dim[lvl],
                                  cfg.transformer_layers_per_block[lvl],
-                                 groups, use_linear_projection=False)
+                                 groups, use_linear_projection=text_time)
 
         self.down_blocks = nn.ModuleList()
         skip_ch = [ch0]
@@ -310,7 +321,9 @@ class UNet2DCondition(nn.Module):
         self.conv_out = nn.Conv2d(ch, cfg.out_channels, 3, padding=1)
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
-                encoder_hidden_states: torch.Tensor) -> UNetOutput:
+                encoder_hidden_states: torch.Tensor,
+                added_cond: Optional[Dict[str, torch.Tensor]] = None
+                ) -> UNetOutput:
         cfg = self.config
         ctx = encoder_hidden_states
         if timesteps.dim() == 0:
@@ -319,6 +332,15 @@ class UNet2DCondition(nn.Module):
         t_feat = timestep_embedding(timesteps, cfg.block_out_channels[0],
                                     cfg.flip_sin_to_cos, cfg.freq_shift)
         temb = self.time_embedding(t_feat.to(sample.dtype))
+        if cfg.addition_embed_type == "text_time":
+            text_embeds = added_cond["text_embeds"]
+            time_ids = added_cond["time_ids"]
+            tid = timestep_embedding(
+                time_ids.reshape(-1), cfg.addition_time_embed_dim,
+                cfg.flip_sin_to_cos, cfg.freq_shift,
+            ).reshape(text_embeds.shape[0], -1)
+            add = torch.cat([text_embeds, tid.to(text_embeds.dtype)], dim=-1)
+            temb = temb + self.add_embedding(add.to(sample.dtype))
 
         h = self.conv_in(sample)
         skips = [h]

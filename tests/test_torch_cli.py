@@ -268,19 +268,22 @@ def test_cli_tiny_cpu_end_to_end(tmp_path, monkeypatch, knobs):
 
 
 def test_cli_refuses_what_it_cannot_run(tmp_path, monkeypatch):
-    """SDXL raises (ROADMAP M10); without --platform the CLI wants the card
-    and raises when there is none (no silent CPU fallback)."""
+    """Without --platform the CLI wants the card and raises when there is
+    none (no silent CPU fallback), for the SD and the SDXL legs alike; an
+    unknown model_ckpt exits.  (The SDXL leg's run on the CPU is
+    ``tests/test_torch_sdxl.py::test_cli_sdxl_tiny``.)"""
     from emcid_torch.cli import run_emcid
 
-    path, hp_dir, _ = _instruction(tmp_path, model_ckpt="sdxl-1.0")
-    with pytest.raises(NotImplementedError, match="M10"):
+    path, hp_dir, _ = _instruction(tmp_path, model_ckpt="sd-v2")
+    with pytest.raises(SystemExit, match="unknown model_ckpt"):
         run_emcid.main(["--instruction_path", str(path), "--tiny",
                         "--platform", "cpu", "--hparams_dir", str(hp_dir)])
     if torch.cuda.is_available():
         return
-    sd = json.loads(path.read_text())
-    sd["model_ckpt"] = "sd-v1.4"
-    path.write_text(json.dumps(sd))
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        run_emcid.main(["--instruction_path", str(path), "--tiny",
-                        "--hparams_dir", str(hp_dir)])
+    for model_ckpt in ("sd-v1.4", "sdxl-1.0"):
+        sd = json.loads(path.read_text())
+        sd["model_ckpt"] = model_ckpt
+        path.write_text(json.dumps(sd))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run_emcid.main(["--instruction_path", str(path), "--tiny",
+                            "--hparams_dir", str(hp_dir)])

@@ -332,7 +332,7 @@ def test_solve_adj_k_matches_jax(method, tol):
 def test_solve_f32_ir_reaches_f64_on_an_ill_conditioned_system():
     """At cond(A) ~8e5 (a covariance over a small caption corpus is worse:
     ~1e8), refinement on f32 residuals stalls at 4e-3 of the float64
-    solve; on float64 residuals, 2 steps reach it within 1e-5."""
+    solve; on float64 residuals it reaches it within 1e-5."""
     r = np.random.RandomState(0)
     q, _ = np.linalg.qr(r.randn(128, 128))
     C = ((q * np.logspace(-3, 3, 128)) @ q.T).astype(np.float32)
@@ -343,6 +343,19 @@ def test_solve_f32_ir_reaches_f64_on_an_ill_conditioned_system():
     assert got.dtype == torch.float32
     assert np.linalg.norm(got.double().numpy() - ref) <= \
         1e-5 * np.linalg.norm(ref)
+
+
+def test_solve_f32_ir_raises_when_the_refinement_diverges():
+    """At cond(A) 1e8 and 512 wide the f32 factor is too poor for the
+    refinement to contract: the solve raises with the ratio reached
+    instead of returning an unconverged x."""
+    r = np.random.RandomState(0)
+    q, _ = np.linalg.qr(r.randn(512, 512))
+    C = ((q * np.logspace(-4, 4, 512)) @ q.T).astype(np.float32)
+    K = r.randn(512, 4).astype(np.float32)
+    with pytest.raises(FloatingPointError, match="did not converge"):
+        solve_adj_k(torch.from_numpy(C), torch.from_numpy(K), 1.0,
+                    method="f32_ir")
 
 
 def test_upd_matrix_match_shape():

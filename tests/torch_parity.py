@@ -60,3 +60,24 @@ def one_torch_thread():
         yield
     finally:
         torch.set_num_threads(n)
+
+
+def port_sdxl_components(comps, dtype=torch.float32):
+    """The JAX ``SDXLComponents`` ``comps`` as port components on the CPU."""
+    from emcid_torch.models.sdxl import from_jax_sdxl
+
+    npt = lambda tree: jax.tree.map(np.asarray, tree)
+    asdict = dataclasses.asdict
+    return from_jax_sdxl(
+        tokenizer=port_tokenizer(comps.tokenizer),
+        text_config=tcfg.CLIPTextConfig(**asdict(comps.text_encoder.config)),
+        text_config_2=tcfg.CLIPTextConfig(
+            **asdict(comps.text_encoder_2.config)),
+        unet_config=tcfg.UNetConfig(**asdict(comps.unet.config)),
+        vae_config=tcfg.VAEConfig(**asdict(comps.vae.config)),
+        text_params=npt(comps.text_params),
+        text_params_2=npt(comps.text_params_2),
+        unet_params=npt(comps.unet_params),
+        vae_params=npt(comps.vae_params),
+        scaling_factor=comps.scaling_factor, vae_scale=comps.vae_scale,
+        device="cpu", dtype=dtype)
