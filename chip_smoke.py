@@ -35,6 +35,23 @@ Phases, each printing one JSON line:
    (c) an SLD-supervised request, (d) txt-img-align with a full-width
    random CLIP ViT-L/14 vision tower; 2 concepts (one SLD request), 10
    Stage-1 steps, the main path's cached covariances;
+4b. the UNet edit modes on that pipeline: a seam check (a zero inject at
+   each of the five seam kinds, and the taps of all nine leaves, leave
+   eps bitwise the same), then ``unet_edit_path``: (a) the cross-attention
+   K/V edit (``apply_emcid_to_cross_attn``, 2 concepts, esd, 10 Stage-1
+   steps, the covariance of 2000 synthetic captions' text states) and
+   the same call again from its z and covariance caches, (b) one SLD
+   ``strong`` request, (c) the region edit (``compute_delta_unet`` +
+   ``execute_emcid_unet``) at up_blocks.3's three attn-out layers with
+   both norm knobs at 1 and covariances from ``layer_stats_unet``, (d)
+   the same at its three res-last-conv layers with
+   ``use_sampled_noise``; per run the launches of every kernel and route,
+   phase seconds, Stage-1 seconds per step, peak memory and checks
+   (finite z and deltas, only the expected weights changed, text encoder
+   and VAE bitwise unchanged, each Stage-2 solve against a host float64
+   solve of the same system, the z error on the written bf16 weights
+   below its value before the edit, the tensor-core routes and no
+   ``fma``, K5b and K6b ``rows`` with the knobs);
 5. model checks: that pipeline's bf16 UNet at the Stage-1 shape and its
    bf16 VAE (decode and re-encode of a 48x48 latent) with attention
    through the kernels against the plain attention path; the UNet in f32
@@ -85,7 +102,8 @@ Phases, each printing one JSON line:
    image and launch no K2 or K3.
 
 Then the kernel table line (launches from the CLI path, from the
-evaluation path's mend run and from the SDXL path), the card's name
+evaluation path's mend run, from the SDXL path and from the UNet edit
+path's runs (a) and (c)), the card's name
 and power limit, and, last, the device line the harness reads.
 Exits non-zero, and prints no result, when there is no CUDA device, when
 the port cannot be imported, or when any phase fails.
@@ -1030,6 +1048,417 @@ def variants_path(torch, comps, stats_dir, failures):
     del tower
     torch.cuda.empty_cache()
     return rows
+
+
+# the UNet edit modes (unet_edit_path): the K/V edit's two concepts are the
+# variant paths', the SLD request carries its safe words as one prompt; the
+# region edits read the first concept's training images with its dest
+# prompts (the default, dest-prompt objective) or the noise; the
+# mom2_update_weight of both modes is the JAX package's tests' (100)
+XKV_SLD_REQUEST = {"prompts": ["a photo of a {}", "an image of a {}", "{}"],
+                   "source": "w5", "dest": " ", "seed_train": 5,
+                   "safe_words": "a photo of a w6"}
+UNET_EDIT_LAM = 100
+REGION = (slice(12, 36), slice(12, 36))  # 24x24 of the 48x48 latents
+UNET_STATS_PAIRS = 8
+UNET_STATS_STEPS = 10
+
+
+def region_hparams(final_layer, **change):
+    from emcid_torch.hparams import UNetEMCIDHyperParams
+
+    d = {
+        "final_layer": final_layer, "spread_sub_block_cnt": 4,
+        "skip_res_conv": False, "v_reduce_inside_img": True,
+        "v_reduce_for_concept": True, "gloabl_sample": True,
+        "num_t_blocks": 4, "even_sample": True, "v_num_grad_steps": 10,
+        "v_lr": 0.05, "v_weight_decay": 5e-4, "clamp_norm_factor": 1.5,
+        "objective": "ablate-source", "esd_mu": None,
+        "mom2_update_weight": UNET_EDIT_LAM,
+        "rewrite_module_tmp": {
+            "mlp": "{}.{}.attentions.{}.transformer_blocks.0.ff.net.2",
+            "conv-res": "{}.{}.resnets.{}.conv2",
+            "conv-sample": "{}.{}.{}.0.conv"},
+        "mom2_dataset": "synthetic_pairs",
+        "mom2_n_samples_prompts": UNET_STATS_PAIRS,
+        "mom2_n_steps_per_prompt": UNET_STATS_STEPS, "mom2_dtype": "float32"}
+    d.update(change)
+    return UNetEMCIDHyperParams.from_dict(d)
+
+
+def solves_vs_f64(calls) -> float:
+    """The worst relative (Frobenius) difference of the recorded
+    ``solve_adj_k(C, K, lam)`` results from numpy's float64 solve of the
+    same system on the host."""
+    import numpy as np
+
+    def host(x):
+        return np.asarray(x.detach().cpu().double() if hasattr(x, "detach")
+                          else x, np.float64)
+
+    worst = 0.0
+    for args, _, out in (c["call"] for c in calls):
+        C, K, lam = host(args[0]), host(args[1]), float(args[2])
+        ref = np.linalg.solve(lam * C + K @ K.T, K)
+        worst = max(worst, float(np.linalg.norm(host(out) - ref)
+                                 / np.linalg.norm(ref)))
+    return worst
+
+
+def write_survival(torch, before, after, deltas):
+    """Per edited weight, the norm of what the bf16 write kept over the
+    norm of the float update ``resid @ adj_k^T``: (min, mean) over the
+    weights, and the worst relative error of the written update."""
+    from emcid_torch.engine.unet_edit import matrix_as_conv_weight
+
+    kept, errs = [], []
+    for key, (adj_k, resid) in deltas.items():
+        name = key[:-len(".weight")]
+        w0 = before.get_submodule(name).weight.float()
+        w1 = after.get_submodule(name).weight.float()
+        upd = (torch.as_tensor(resid, device="cuda").double()
+               @ torch.as_tensor(adj_k, device="cuda").double().T).float()
+        if w0.dim() == 4:
+            upd = matrix_as_conv_weight(upd, w0.shape[2], w0.shape[3])
+        elif upd.shape != w0.shape:
+            upd = upd.T
+        n = float(upd.norm())
+        kept.append(float((w1 - w0).norm()) / n)
+        errs.append(float((w1 - w0 - upd).norm()) / n)
+    return dict(upd_kept_min=min(kept), upd_kept_mean=sum(kept) / len(kept),
+                written_upd_rel_err_max=max(errs))
+
+
+def edit_changes(torch, comps, edited):
+    """Changed parameter names of the UNet, and whether the text encoder
+    and the VAE are bitwise the unedited ones."""
+    return (sorted(changed_params(torch, comps.unet, edited.unet)),
+            not changed_params(torch, comps.text_encoder,
+                               edited.text_encoder)
+            and not changed_params(torch, comps.vae, edited.vae))
+
+
+def xkv_z_error(comps, unet, requests, hp, zs):
+    """The K/V edit's z error on ``unet``'s weights as they are (as JAX
+    prints it: the mean over the targets of |z - K W^T|), averaged over
+    the projections."""
+    from emcid_torch.engine.cross_attn import get_cross_attn_keys
+    from emcid_torch.runtime import precise_matmuls
+
+    import torch
+
+    keys = get_cross_attn_keys(comps, requests, hp.num_edit_tokens)[0]
+    keys = keys.reshape(-1, keys.shape[-1])
+    errs = []
+    with precise_matmuls():
+        for name, z in zs.items():
+            w = unet.get_submodule(name).weight.float()
+            z = torch.as_tensor(z, device="cuda").reshape(-1, w.shape[0])
+            errs.append(float((z - keys @ w.T).norm(dim=1).mean()))
+    return sum(errs) / len(errs)
+
+
+def seam_check(torch, comps, failures):
+    """The main path's bf16 UNet at the Stage-1 shape (B=2, 48x48, 77
+    tokens): a zero inject at each of the five seam kinds (a resnet conv2,
+    to_k, to_v, the attn2 output, ff.net.2, all of up_blocks.3) and the
+    taps of every leaf leave eps bitwise the same."""
+    from emcid_torch.models.unet import unet_inject, unet_taps
+
+    unet = comps.unet
+    g = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn(2, 4, 48, 48, generator=g, device="cuda").bfloat16()
+    t = torch.tensor([500, 20], device="cuda")
+    ctx = torch.randn(2, 77, unet.config.cross_attention_dim, generator=g,
+                      device="cuda").bfloat16()
+    res = "up_blocks.3.resnets.2"
+    blk = "up_blocks.3.attentions.2.transformer_blocks.0"
+    z = lambda *s: torch.zeros(s, device="cuda")
+    seams = {f"{res}.conv2": z(2, 320, 48, 48), f"{blk}.attn2.to_k":
+             z(2, 77, 320), f"{blk}.attn2.to_v": z(2, 77, 320),
+             f"{blk}.attn2": z(2, 2304, 320), f"{blk}.ff.net.2":
+             z(2, 2304, 320)}
+    spec = {res: ["conv2_in", "conv2_out"],
+            f"{blk}.attn2": ["kv_in", "k_out", "v_out", "attn_out_in",
+                             "attn_out_out"],
+            f"{blk}.ff": ["ff2_in", "ff2_out"]}
+    with torch.no_grad(), environ(**dict.fromkeys(KNOBS)):
+        ref = unet(x, t, ctx).sample
+        row = dict(phase="model_check", what="sd-v1.4 UNet bf16, B=2, "
+                   "48x48: zero injects and taps leave eps bitwise",
+                   rerun_bitwise=torch.equal(unet(x, t, ctx).sample, ref))
+        for path, zero in seams.items():
+            with unet_inject(unet, {path: zero}):
+                row[f"zero_inject_bitwise[{path}]"] = torch.equal(
+                    unet(x, t, ctx).sample, ref)
+        with unet_taps(unet, spec) as taps:
+            row["taps_bitwise"] = torch.equal(unet(x, t, ctx).sample, ref)
+        row["tap_shapes"] = {leaf: list(v.shape) for got in taps.values()
+                             for leaf, v in got.items()}
+    row["ok"] = (all(v for k, v in row.items()
+                     if k.endswith(("bitwise", "]")))
+                 and len(row["tap_shapes"]) == 9)
+    emit(row)
+    if not row["ok"]:
+        failures.append(f"seam check: {row}")
+
+
+def unet_edit_path(torch, comps, stats_dir, failures):
+    """The UNet edit modes through their library entry points on the main
+    path's bf16 pipeline, one JSON row per run, each with its own launch
+    counts, seconds, peak memory and checks:
+
+    (a) ``x_kv_esd``: ``apply_emcid_to_cross_attn``, the variant paths' 2
+        concepts x 3 prompts (DPM++ training images at 10 steps, 384 px),
+        esd (mu 1), 10 Stage-1 steps, the covariance from
+        ``layer_stats_cross_attn_kv`` over the 2000 synthetic captions;
+        then the same call again, which must read the covariance and z
+        caches, launch no K2/K3 and give the same weights;
+    (b) ``x_kv_sld``: one request with safe words under SLD ``strong``;
+    (c) ``region_attn_out``: ``compute_delta_unet`` + ``execute_emcid_
+        unet`` with both norm knobs at 1, up_blocks.3's three attn-out
+        layers, 4 time blocks, 10 steps, the dest-prompt objective, a
+        24x24 region of the 48x48 latents, per-layer covariances from
+        ``layer_stats_unet`` over 8 (training image, caption) pairs, 10
+        timesteps each;
+    (d) ``region_conv``: the same at up_blocks.3's three res-last-conv
+        layers, with ``use_sampled_noise``.
+
+    Returns the rows of (a) and (c)."""
+    import dataclasses
+
+    import numpy as np
+
+    from emcid_torch.dsets.stat_dataset import make_synthetic_captions
+    from emcid_torch.engine import cross_attn, unet_edit
+    from emcid_torch.engine.training_images import (
+        training_latents_for_requests)
+    from emcid_torch.engine.uce import cross_attn_kv_layer_names
+    from emcid_torch.engine.unet_stats import layer_stats_unet
+    from emcid_torch.ops import _build
+
+    kv = sorted(f"{n}.weight" for n in cross_attn_kv_layer_names(comps.unet))
+    caps = make_synthetic_captions(2000)
+    gen_kw = dict(height=384, width=384, num_inference_steps=10,
+                  sampler="dpm++", return_images=True)
+    sync = torch.cuda.synchronize
+    rows, images = {}, []
+
+    def begin():
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        return time.time()
+
+    def finish(row, t0, expect_routes, norm_bwd=False):
+        sync()
+        row.update(seconds=time.time() - t0,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   launches=dict(_build.LAUNCHES),
+                   routes=copy.deepcopy(_build.ROUTES))
+        row["routes_ok"] = routes_ok(row["routes"], expect_routes)
+        if norm_bwd:  # K5b on either route, K6b on its register rows
+            row["norm_bwd_ok"] = (
+                row["launches"]["K5b groupnorm_bwd"] > 0
+                and row["routes"]["K6b layernorm_bwd"]["rows"] > 0)
+        row["ok"] = bool(row["routes_ok"] and all(
+            v for k, v in row.items() if k.endswith(("_finite", "_ok",
+                                                     "_unchanged"))))
+        emit(row)
+        rows[row["run"]] = row
+        if not row["ok"]:
+            failures.append(f"unet edit path {row['run']}: {row}")
+
+    def xkv_run(name, requests, hp, tmp, again=False, lat=None):
+        cache = os.path.join(tmp, "z", "")
+        calls = {k: [] for k in ("z", "solve", "stats", "exec")}
+        cov_file = cross_attn.stats_filename(
+            stats_dir, "unet", "ccs_filtered",
+            cross_attn_kv_layer_names(comps.unet)[0], "float32", ("mom2",),
+            3 * 1024, len(caps))
+        cov_mtime = cov_file.stat().st_mtime if cov_file.exists() else None
+        t0 = begin()
+        if lat is None:
+            mean, logvar, imgs = training_latents_for_requests(
+                comps, requests, hp, **gen_kw)
+            images.extend(imgs)
+            lat = (mean, logvar)
+        sync()
+        t_img = time.time()
+        with spy(cross_attn, "compute_z_unet_x_kv", calls["z"]), \
+                spy(cross_attn, "solve_adj_k", calls["solve"]), \
+                spy(cross_attn, "layer_stats_cross_attn_kv", calls["stats"]), \
+                spy(cross_attn, "execute_emcid_cross_attn", calls["exec"]):
+            deltas, edited = cross_attn.apply_emcid_to_cross_attn(
+                comps, requests, hp, latents_mean=lat[0],
+                latents_logvar=lat[1], captions=caps, cache_name=cache,
+                stats_dir=stats_dir, verbose=False)
+        stage1_s = sum(c["seconds"] for c in calls["z"])
+        zs = {}
+        for r in requests:
+            data = np.load(f"{cache}source_{r['source']}.npz")
+            for n in data.files:
+                zs.setdefault(n, []).append(data[n])
+        zs = {n: np.stack(v) for n, v in zs.items()}
+        changed, others_unchanged = edit_changes(torch, comps, edited)
+        row = dict(
+            phase="unet_edit_path", run=name,
+            entry="emcid_torch.engine.apply_emcid_to_cross_attn",
+            concepts=len(requests), prompts=3,
+            grad_steps=hp.v_num_grad_steps, objective=(
+                f"sld {hp.sld_type}" if hp.sld_supervision
+                else f"esd mu {hp.esd_mu}"),
+            mom2_update_weight=hp.mom2_update_weight,
+            training_images_s=(t_img - t0) if not again else 0.0,
+            covariance_s=sum(c["seconds"] for c in calls["stats"]),
+            stage1_s=stage1_s,
+            stage1_s_per_step=(stage1_s / (len(calls["z"])
+                                           * hp.v_num_grad_steps)
+                               if calls["z"] else None),
+            stage2_s=sum(c["seconds"] for c in calls["exec"]),
+            stage1_calls=len(calls["z"]),
+            z_finite=bool(zs) and all(np.isfinite(z).all()
+                                      for z in zs.values()),
+            deltas_finite=all(np.isfinite(a).all() and np.isfinite(r).all()
+                              for a, r in deltas.values()),
+            changed_params=len(changed), changed_exact_ok=changed == kv,
+            text_encoder_vae_unchanged=others_unchanged,
+            stage2_f32_ir_vs_f64_rel=solves_vs_f64(calls["solve"]),
+            solve_rel_tolerance=SOLVE_REL_TOL,
+            z_error_before=xkv_z_error(comps, comps.unet, requests, hp, zs),
+            z_error_written=xkv_z_error(comps, edited.unet, requests, hp,
+                                        zs),
+            **write_survival(torch, comps.unet, edited.unet, deltas))
+        row["stage2_solve_ok"] = (
+            bool(calls["solve"])
+            and row["stage2_f32_ir_vs_f64_rel"] <= SOLVE_REL_TOL)
+        row["z_error_falls_ok"] = row["z_error_written"] < row[
+            "z_error_before"]
+        if again:
+            row.update(
+                z_cache_read_ok=not calls["z"],
+                cov_cache_read_ok=(cov_mtime is not None
+                                   and cov_file.stat().st_mtime == cov_mtime),
+                no_backward_ok=(_build.LAUNCHES["K2 flash_v2_dq"] == 0
+                                and _build.LAUNCHES["K3 flash_v2_dkv"] == 0))
+            expect = {}
+        else:
+            expect = BF16_ROUTES
+        return row, t0, expect, edited, lat
+
+    with tempfile.TemporaryDirectory() as tmp:
+        hp = dataclasses.replace(bench_hparams(10), objective="esd",
+                                 esd_mu=1.0,
+                                 mom2_update_weight=UNET_EDIT_LAM)
+        row, t0, expect, first, lat = xkv_run("a_x_kv_esd",
+                                              VARIANT_REQUESTS, hp, tmp)
+        finish(row, t0, expect)
+        row, t0, expect, again, _ = xkv_run("a_x_kv_esd_cached",
+                                            VARIANT_REQUESTS, hp, tmp,
+                                            again=True, lat=lat)
+        row["same_weights_ok"] = all(
+            torch.allclose(again.unet.get_submodule(n[:-7]).weight.float(),
+                           first.unet.get_submodule(n[:-7]).weight.float(),
+                           rtol=1e-5, atol=1e-8) for n in kv)
+        finish(row, t0, expect)
+        del first, again
+    with tempfile.TemporaryDirectory() as tmp:
+        hp = dataclasses.replace(hp, objective="ablate-dest", esd_mu="None",
+                                 sld_supervision=True, sld_type="strong")
+        row, t0, expect, edited, _ = xkv_run("b_x_kv_sld",
+                                             [XKV_SLD_REQUEST], hp, tmp)
+        finish(row, t0, expect)
+        del edited
+    torch.cuda.empty_cache()
+
+    # the region edits: the first concept's training images (Simg 1, P 3)
+    lm, lv = lat[0][0], lat[1][0]
+    region = np.zeros((3, 48, 48), np.float32)
+    region[(slice(None),) + REGION] = 1.0
+    pairs = list(zip(images[:UNET_STATS_PAIRS],
+                     make_synthetic_captions(UNET_STATS_PAIRS, seed=1)))
+    request = REQUESTS[0]
+    for name, final, change in (
+            ("c_region_attn_out", ["up_blocks", 3, "attn-out"], {}),
+            ("d_region_conv", ["up_blocks", 3, "res-last-conv"],
+             dict(use_sampled_noise=True))):
+        hp = region_hparams(final, **change)
+        layers = unet_edit.retrieve_spreading_layers(hp)
+        kind = layers[0][1][2]
+        solves = []
+        with environ(EMCID_TPU_FUSED_GN="1", EMCID_TPU_FUSED_LN="1"):
+            t0 = begin()
+            covs = {n: layer_stats_unet(
+                comps, n, kind, pairs, stats_dir=stats_dir,
+                ds_name="synthetic_pairs",
+                t_steps_per_pair=UNET_STATS_STEPS).mom2.moment()
+                for n, _ in layers}
+            sync()
+            t1 = time.time()
+            delta = unet_edit.compute_delta_unet(comps, request, hp, lm, lv,
+                                                 region, verbose=False)
+            t2 = time.time()
+            with spy(unet_edit, "solve_adj_k", solves):
+                deltas, edited = unet_edit.execute_emcid_unet(
+                    comps, [request], hp, [delta], [region], [(lm, lv)],
+                    covs, verbose=False)
+            sync()
+            t3 = time.time()
+
+            # the z error at the final layer, as JAX prints it: the mean
+            # over the region points of |desired - current pre-fold
+            # output|, the desired from the unedited model, the current
+            # from each model with the same draws
+            def region_io(c, d=None):
+                return unet_edit._region_io(
+                    c, request, hp, layers[0][0], kind, lm, lv, region,
+                    gen=unet_edit.region_generator("cuda", 0, 0), delta=d)
+
+            _, cur0, desired = region_io(comps, delta)
+            _, cur1, _ = region_io(edited)
+            before = float((desired - cur0).norm(dim=1).mean())
+            written = float((desired - cur1).norm(dim=1).mean())
+            changed, others_unchanged = edit_changes(torch, comps, edited)
+            expect_changed = sorted(f"{n}.weight" for n, _ in layers)
+            row = dict(
+                phase="unet_edit_path", run=name,
+                entry="emcid_torch.engine.compute_delta_unet + "
+                "execute_emcid_unet", final_layer=final,
+                spreading_layers=[n for n, _ in layers],
+                num_t_blocks=hp.num_t_blocks, grad_steps=hp.v_num_grad_steps,
+                objective=("use_sampled_noise" if hp.use_sampled_noise
+                           else "dest prompts"),
+                region=[24, 24], latents=[48, 48],
+                knobs=dict(EMCID_TPU_FUSED_GN="1", EMCID_TPU_FUSED_LN="1"),
+                covariance_s=t1 - t0, stage1_s=t2 - t1,
+                stage1_s_per_step=(t2 - t1) / hp.v_num_grad_steps,
+                stage2_s=t3 - t2,
+                region_keys=[int(a.shape[1]) for a, _ in deltas.values()],
+                delta_finite=bool(np.isfinite(delta).all()),
+                delta_norm=float(np.linalg.norm(delta)),
+                deltas_finite=all(np.isfinite(a).all()
+                                  and np.isfinite(r).all()
+                                  for a, r in deltas.values()),
+                changed_params=changed,
+                changed_exact_ok=changed == expect_changed,
+                text_encoder_vae_unchanged=others_unchanged,
+                stage2_f64_vs_host_f64_rel=solves_vs_f64(solves),
+                solve_rel_tolerance=SOLVE_REL_TOL,
+                z_error_before=before, z_error_written=written,
+                **write_survival(torch, comps.unet, edited.unet, deltas))
+            row["stage2_solve_ok"] = (
+                len(solves) == len(layers)
+                and row["stage2_f64_vs_host_f64_rel"] <= SOLVE_REL_TOL)
+            row["z_error_falls_ok"] = written < before
+            # the attn-out inject's gradient passes no self-attention (the
+            # block's attn1 runs before it): K2/K3 only in the conv run
+            expect = {k: v for k, v in BF16_ROUTES.items()
+                      if kind != "attn-out" or k not in (
+                          "K2 flash_v2_dq", "K3 flash_v2_dkv")}
+            finish(row, t0, expect, norm_bwd=True)
+            del edited
+        torch.cuda.empty_cache()
+    return rows["a_x_kv_esd"], rows["c_region_attn_out"]
 
 
 # f32 on both sides under precise_matmuls (no TF32); the two differ only in
@@ -2108,13 +2537,15 @@ def sdxl_path(torch, tmp: Path, ref, build_s, failures):
     return row
 
 
-def kernel_table(rows, launches, routes, eval_run, sdxl_run):
+def kernel_table(rows, launches, routes, eval_run, sdxl_run, xkv_run,
+                 region_run):
     """One entry per kernel: the product-shape bf16 measurement of the
     first shape the main paths give it, and its launches (per route, where
     it has several) in the run that ``launches`` and ``routes`` count (the
     CLI path), in the evaluation path's run ``eval_run`` (mend, both knobs
-    at 1) and in the SDXL path's first CLI call ``sdxl_run`` (knobs
-    off)."""
+    at 1), in the SDXL path's first CLI call ``sdxl_run`` (knobs off), and
+    in the UNet edit path's K/V edit ``xkv_run`` (run (a), knobs off) and
+    region edit ``region_run`` (run (c), both knobs at 1)."""
     table = []
     for name, (source, replaces) in SOURCES.items():
         timed = [r for r in rows if r["kernel"] == name and "kernel_ms" in r]
@@ -2130,7 +2561,9 @@ def kernel_table(rows, launches, routes, eval_run, sdxl_run):
         if name in routes:
             entry["route_launches"] = routes[name]
             entry["kernel_route"] = r["route"]
-        for label, run in (("eval_path", eval_run), ("sdxl_path", sdxl_run)):
+        for label, run in (("eval_path", eval_run), ("sdxl_path", sdxl_run),
+                           ("unet_edit_x_kv", xkv_run),
+                           ("unet_edit_region", region_run)):
             entry[f"{label}_launches"] = run["launches"].get(name, 0)
             if name in run["routes"]:
                 entry[f"{label}_route_launches"] = run["routes"][name]
@@ -2173,6 +2606,9 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as stats_dir:
         _, comps = main_path(torch, stats_dir, failures)
         variants_path(torch, comps, stats_dir, failures)
+        seam_check(torch, comps, failures)
+        xkv_run, region_run = unet_edit_path(torch, comps, stats_dir,
+                                             failures)
     model_check_bf16(torch, comps, failures)
     unet = copy.deepcopy(comps.unet).float()
     del comps
@@ -2205,7 +2641,8 @@ def main(argv=None) -> int:
             print(f"FAILED: {f}", file=sys.stderr)
         return 1
     mend = next(r for r in evals if r["run"] == "b_mend")
-    emit({"kernels": kernel_table(rows, launches, routes, mend, sdxl)})
+    emit({"kernels": kernel_table(rows, launches, routes, mend, sdxl,
+                                  xkv_run, region_run)})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -25,4 +25,14 @@ from emcid_torch.engine.sdxl import (
     compute_z_sdxl_text_encoders,
     execute_emcid_sd_xl_text_encoders,
 )
+from emcid_torch.engine.cross_attn import (
+    apply_emcid_to_cross_attn,
+    execute_emcid_cross_attn,
+    layer_stats_cross_attn_kv,
+)
+from emcid_torch.engine.unet_edit import (
+    compute_delta_unet,
+    execute_emcid_unet,
+)
+from emcid_torch.engine.unet_stats import layer_stats_unet
 from emcid_torch.engine.fim import fim_stats, load_fim

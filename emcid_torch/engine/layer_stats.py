@@ -6,7 +6,10 @@ Counterpart of ``emcid_tpu/engine/layer_stats.py``.  Same cache path codec
 caches move between the two packages.  Caption batches are fixed-shape
 (padded to ``batch_size`` rows, attention-mask weighted): masked positions
 are exactly zero in the accumulate.  The accumulate runs under
-``precise_matmuls``.
+``precise_matmuls``.  ``to_collect`` names the statistics of
+``STAT_TYPES`` (``mom2``, ``mean``, ``norm_mean``); with any besides
+``mom2`` every statistic sees the real tokens' rows only, gathered on the
+host, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -18,7 +21,19 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from emcid_torch.stats import CombinedStat, SecondMoment, tally
+from emcid_torch.stats import (
+    CombinedStat,
+    Mean,
+    NormMean,
+    SecondMoment,
+    tally,
+)
+
+STAT_TYPES = {
+    "mom2": SecondMoment,
+    "mean": Mean,
+    "norm_mean": NormMean,
+}
 
 
 def stats_filename(
@@ -75,12 +90,11 @@ def layer_stats_text_encoder(
     force_recompute: bool = False,
     max_length: Optional[int] = None,
 ) -> CombinedStat:
-    """Load-or-compute the cached second moment of one layer's fc2 input."""
-    if tuple(to_collect) != ("mom2",):
-        raise NotImplementedError("only mom2 statistics (ROADMAP M8)")
+    """Load-or-compute the cached statistics ``to_collect`` of one
+    layer's fc2 input."""
     filename = stats_filename(stats_dir, model_name, ds_name, layer_name,
                               precision, to_collect, batch_tokens, sample_size)
-    stat = CombinedStat(mom2=SecondMoment())
+    stat = CombinedStat(**{k: STAT_TYPES[k]() for k in to_collect})
     if captions is None and not filename.exists():
         raise FileNotFoundError(
             f"stats cache {filename} missing and no caption corpus provided")
@@ -104,8 +118,13 @@ def layer_stats_text_encoder(
         ids_t = torch.as_tensor(ids, device=device)
         mask_t = torch.as_tensor(mask, device=device)
         feats = fc2_inputs(model, ids_t, mask_t, layer_index)
-        stat.mom2.add(feats.reshape(-1, feats.shape[-1]),
-                      n_valid=int(mask.sum()))
+        flat = feats.reshape(-1, feats.shape[-1])
+        if set(to_collect) == {"mom2"}:
+            stat.mom2.add(flat, n_valid=int(mask.sum()))
+        else:  # Mean and NormMean must see the real tokens only
+            real = torch.as_tensor(mask.reshape(-1).astype(bool),
+                                   device=device)
+            stat.add(flat[real])
     return stat
 
 

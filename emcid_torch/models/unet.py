@@ -16,8 +16,12 @@ pooled text embedding and the sinusoids of the six micro-conditioning
 ``time_ids``, through two linears) to the time embedding, and turns on
 ``use_linear_projection`` in every Transformer2D (the SDXL convention the
 JAX package keys on the same field).
-The JAX package's ``inject=`` seams and ``sow`` taps serve the UNet edit
-modes (ROADMAP M11) and are not ported yet.
+The JAX package's ``sow`` taps and ``inject=`` seams, which serve the
+UNet edit modes, are forward hooks here (``unet_taps``, ``unet_inject``),
+so ``forward`` and the state dict stay as they are.  Their names are the
+JAX package's; the conv leaves and injects are NCHW (JAX: NHWC).  As in
+JAX, ``attn_out_out`` is read before the attention-output inject, and
+``conv2_out``, ``ff2_out``, ``k_out`` and ``v_out`` after theirs.
 
 Two knobs, read at call time with the JAX package's names and values,
 route the norms through the fused kernels: ``EMCID_TPU_FUSED_GN`` = ``1``
@@ -32,9 +36,10 @@ with both knobs off the stock modules run.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, Iterator, NamedTuple, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -370,3 +375,69 @@ class UNet2DCondition(nn.Module):
 
         h = self.conv_out(_gn_act(self.conv_norm_out, h, "silu"))
         return UNetOutput(sample=h)
+
+
+# the JAX package's sow leaves: the submodule of the owning module (a
+# resnet, an attn2, an ff) that a hook watches, and which side of it
+TAP_LEAVES = {
+    "conv2_in": ("conv2", "in"),
+    "conv2_out": ("conv2", "out"),
+    "kv_in": ("to_k", "in"),
+    "k_out": ("to_k", "out"),
+    "v_out": ("to_v", "out"),
+    "attn_out_in": ("to_out.0", "in"),
+    "attn_out_out": ("to_out.0", "out"),
+    "ff2_in": ("net.2", "in"),
+    "ff2_out": ("net.2", "out"),
+}
+
+
+@contextlib.contextmanager
+def unet_taps(unet: nn.Module,
+              spec: Dict[str, Union[str, Sequence[str]]]
+              ) -> Iterator[Dict[str, Dict[str, torch.Tensor]]]:
+    """Record leaves of ``TAP_LEAVES`` during the forwards inside the
+    scope.  ``spec`` maps an owning module's dotted name (e.g.
+    ``up_blocks.3.resnets.2``, ``...transformer_blocks.0.attn2``,
+    ``...transformer_blocks.0.ff``) to a leaf name or several; the yielded
+    dict ``taps[path][leaf]`` holds the value of the latest forward."""
+    taps: Dict[str, Dict[str, torch.Tensor]] = {path: {} for path in spec}
+    handles = []
+    try:
+        for path, leaves in spec.items():
+            for leaf in [leaves] if isinstance(leaves, str) else leaves:
+                sub, side = TAP_LEAVES[leaf]
+                mod = unet.get_submodule(f"{path}.{sub}")
+                rec = taps[path]
+                if side == "in":
+                    handles.append(mod.register_forward_pre_hook(
+                        lambda m, args, rec=rec, leaf=leaf:
+                        rec.__setitem__(leaf, args[0])))
+                else:
+                    handles.append(mod.register_forward_hook(
+                        lambda m, args, out, rec=rec, leaf=leaf:
+                        rec.__setitem__(leaf, out)))
+        yield taps
+    finally:
+        for h in handles:
+            h.remove()
+
+
+@contextlib.contextmanager
+def unet_inject(unet: nn.Module, deltas: Dict[str, torch.Tensor]
+                ) -> Iterator[None]:
+    """Add ``deltas[path]`` (cast to the output's dtype, broadcast) to the
+    output of the module ``path`` in the forwards inside the scope.  The
+    JAX package's inject keys: ``{resnet}.conv2`` (NCHW),
+    ``{attn2}.to_k`` / ``.to_v``, ``{attn2}`` (after ``to_out.0``) and
+    ``{ff}.net.2``.  The hooks run before any tap of the same module."""
+    handles = []
+    try:
+        for path, delta in deltas.items():
+            handles.append(unet.get_submodule(path).register_forward_hook(
+                lambda m, args, out, delta=delta: out + delta.to(out.dtype),
+                prepend=True))
+        yield
+    finally:
+        for h in handles:
+            h.remove()

@@ -1,14 +1,20 @@
-"""Streaming second moments over datasets, with npz caching.
+"""Streaming statistics over datasets, with npz caching.
 
-Counterpart of ``emcid_tpu/stats/running.py`` (the parts the covariance
-pre-cache and the EWC Fisher statistic use: ``SecondMoment``, ``Mean``,
-``CombinedStat``, ``tally`` and the npz codec).  The accumulate is a torch f32 matmul on the tensor's device,
-under ``precise_matmuls`` (no TF32).  The ``.npz`` state schema is the JAX
-package's and the reference's: keys ``count`` and ``mom2`` (prefixed
-``mom2.`` inside a ``CombinedStat``), ``constructor``, the ``sample_size``
-check argument, and None stored NaN-boxed, so a cache written by either
-package loads in the other.  ``Mean`` keeps the keys ``count``,
-``batchcount``, ``mean`` and ``data_shape``.
+Counterpart of ``emcid_tpu/stats/running.py``: ``SecondMoment``,
+``Mean``, ``NormMean``, ``Variance``, ``Covariance``, ``CombinedStat``,
+``tally``, ``cache_load_enabled`` and the npz codec (the JAX package's
+``stats/extras.py`` is ROADMAP M12).  The second-moment accumulate is a
+torch f32 matmul on the tensor's device, under ``precise_matmuls`` (no
+TF32); the mean, variance and covariance statistics run on the host in
+numpy, in the dtype of what is added (Chan's parallel update).  The
+``.npz`` state schema is the JAX package's and the reference's: keys
+``count`` and ``mom2`` (prefixed ``mom2.`` inside a ``CombinedStat``),
+``constructor``, the ``sample_size`` check argument, and None stored
+NaN-boxed, so a cache written by either package loads in the other.
+``Mean`` and ``NormMean`` keep the keys ``count``, ``batchcount``,
+``mean`` and ``data_shape``; ``Variance`` adds ``cmom2`` (the centered
+second moment per feature), ``Covariance`` keeps ``count``, ``mean``,
+``cmom2`` (the full centered matrix) and ``data_shape``.
 """
 
 from __future__ import annotations
@@ -114,6 +120,25 @@ def _load_data_shape(ds):
     return tuple(int(d) for d in arr)
 
 
+def _rows(data_shape, a):
+    """Host array of (N, features) rows, and the trailing feature shape
+    of an N-D input (kept to restore the result's shape)."""
+    a = _to_np(a)
+    if a.ndim == 1:
+        a = a[:, None]
+    elif a.ndim != 2:
+        if data_shape is None:
+            data_shape = tuple(a.shape[1:])
+        a = a.reshape(a.shape[0], -1)
+    return data_shape, a
+
+
+def _restore_shape(data_shape, a):
+    if data_shape is None or a is None:
+        return a
+    return a.reshape(a.shape[:-1] + tuple(data_shape))
+
+
 class Mean(Stat):
     """Running mean over the rows of (N, ...) batches (Chan's update), kept
     on the host in the type of what is added."""
@@ -126,13 +151,7 @@ class Mean(Stat):
         super().__init__(state)
 
     def add(self, a):
-        a = _to_np(a)
-        if a.ndim == 1:
-            a = a[:, None]
-        elif a.ndim != 2:
-            if self.data_shape is None:
-                self.data_shape = tuple(a.shape[1:])
-            a = a.reshape(a.shape[0], -1)
+        self.data_shape, a = _rows(self.data_shape, a)
         if a.shape[0] == 0:
             return
         batch_count = a.shape[0]
@@ -150,10 +169,7 @@ class Mean(Stat):
         return self.count
 
     def mean(self):
-        if self.data_shape is None or self._mean is None:
-            return self._mean
-        return self._mean.reshape(self._mean.shape[:-1]
-                                  + tuple(self.data_shape))
+        return _restore_shape(self.data_shape, self._mean)
 
     def state_dict(self):
         return dict(constructor=self._constructor_name(), count=self.count,
@@ -164,6 +180,128 @@ class Mean(Stat):
         self.count = int(state["count"])
         self.batchcount = int(state["batchcount"])
         self._mean = np.asarray(state["mean"])
+        self.data_shape = _load_data_shape(state.get("data_shape"))
+
+
+class NormMean(Mean):
+    """Running mean of the rows' L2 norms (over the last axis)."""
+
+    def add(self, a):
+        super().add(np.linalg.norm(_to_np(a), axis=-1))
+
+
+class Variance(Stat):
+    """Running mean and per-feature variance (Chan's parallel update)."""
+
+    def __init__(self, state=None):
+        self.count = 0
+        self.batchcount = 0
+        self._mean = None
+        self.v_cmom2 = None
+        self.data_shape = None
+        super().__init__(state)
+
+    def add(self, a):
+        self.data_shape, a = _rows(self.data_shape, a)
+        if a.shape[0] == 0:
+            return
+        batch_count = a.shape[0]
+        batch_mean = a.sum(0) / batch_count
+        centered = a - batch_mean
+        batch_cmom2 = (centered * centered).sum(0)
+        self.batchcount += 1
+        if self._mean is None:
+            self.count = batch_count
+            self._mean, self.v_cmom2 = batch_mean, batch_cmom2
+            return
+        old_count = self.count
+        self.count += batch_count
+        frac = float(batch_count) / self.count
+        delta = batch_mean - self._mean
+        self._mean = self._mean + delta * frac
+        self.v_cmom2 = (self.v_cmom2 + batch_cmom2
+                        + delta * delta * (frac * old_count))
+
+    def size(self):
+        return self.count
+
+    def mean(self):
+        return _restore_shape(self.data_shape, self._mean)
+
+    def variance(self, unbiased=True):
+        return _restore_shape(self.data_shape, self.v_cmom2 / (
+            self.count - (1 if unbiased else 0)))
+
+    def stdev(self, unbiased=True):
+        return np.sqrt(self.variance(unbiased=unbiased))
+
+    def state_dict(self):
+        return dict(constructor=self._constructor_name(), count=self.count,
+                    data_shape=self.data_shape and tuple(self.data_shape),
+                    batchcount=self.batchcount, mean=_to_np(self._mean),
+                    cmom2=_to_np(self.v_cmom2))
+
+    def load_state_dict(self, state):
+        self.count = int(state["count"])
+        self.batchcount = int(state["batchcount"])
+        self._mean = np.asarray(state["mean"])
+        self.v_cmom2 = np.asarray(state["cmom2"])
+        self.data_shape = _load_data_shape(state.get("data_shape"))
+
+
+class Covariance(Stat):
+    """Running mean and full covariance (Chan's parallel update)."""
+
+    def __init__(self, state=None):
+        self.count = 0
+        self._mean = None
+        self.cmom2 = None
+        self.data_shape = None
+        super().__init__(state)
+
+    def add(self, a):
+        self.data_shape, a = _rows(self.data_shape, a)
+        if a.shape[0] == 0:
+            return
+        batch_count = a.shape[0]
+        if self._mean is None:
+            self.count = batch_count
+            self._mean = a.sum(0) / batch_count
+            centered = a - self._mean
+            self.cmom2 = centered.T @ centered
+            return
+        self.count += batch_count
+        delta = a - self._mean
+        self._mean = self._mean + delta.sum(0) / self.count
+        self.cmom2 = self.cmom2 + delta.T @ (a - self._mean)
+
+    def mean(self):
+        return _restore_shape(self.data_shape, self._mean)
+
+    def covariance(self, unbiased=True):
+        return self.cmom2 / (self.count - (1 if unbiased else 0))
+
+    def correlation(self, unbiased=True):
+        cov = self.covariance(unbiased=unbiased)
+        rstdev = 1.0 / np.sqrt(np.diagonal(cov))
+        return rstdev[:, None] * cov * rstdev[None, :]
+
+    def variance(self, unbiased=True):
+        return _restore_shape(self.data_shape, np.diagonal(self.cmom2) / (
+            self.count - (1 if unbiased else 0)))
+
+    def stdev(self, unbiased=True):
+        return np.sqrt(self.variance(unbiased=unbiased))
+
+    def state_dict(self):
+        return dict(constructor=self._constructor_name(), count=self.count,
+                    data_shape=self.data_shape and tuple(self.data_shape),
+                    mean=_to_np(self._mean), cmom2=_to_np(self.cmom2))
+
+    def load_state_dict(self, state):
+        self.count = int(state["count"])
+        self._mean = np.asarray(state["mean"])
+        self.cmom2 = np.asarray(state["cmom2"])
         self.data_shape = _load_data_shape(state.get("data_shape"))
 
 
@@ -240,10 +378,33 @@ def resolve_state_dict(s):
     return s
 
 
+_load_cache_enabled = True
+
+
+class cache_load_enabled:
+    """``with cache_load_enabled(False):`` makes ``load_cached_state`` (and
+    so ``tally``) ignore every cache file inside the scope: the statistic
+    is recomputed (and the file written anew)."""
+
+    def __init__(self, enabled=True):
+        self.enabled = enabled
+        self.prev = True
+
+    def __enter__(self):
+        global _load_cache_enabled
+        self.prev = _load_cache_enabled
+        _load_cache_enabled = self.enabled
+        return self
+
+    def __exit__(self, *exc):
+        global _load_cache_enabled
+        _load_cache_enabled = self.prev
+
+
 def load_cached_state(cachefile, args: Dict[str, Any], quiet=False):
     """The npz state at ``cachefile`` if present and its check-args match,
-    else None."""
-    if cachefile is None:
+    else None (always None inside ``cache_load_enabled(False)``)."""
+    if not _load_cache_enabled or cachefile is None:
         return None
     try:
         dat = unbox_numpy_null(dict(np.load(cachefile)))
