@@ -82,6 +82,22 @@ Phases, each printing one JSON line:
    on the host, the debias UCE and the clip_edit Stage-2 solves against
    float64, the debias factors a distribution, the tensor-core routes of
    K1-K4 (and, with the knobs, K5b ``resident`` and K6b ``rows``);
+7b. the preservation and single-concept benchmarks on the same folder
+   (``preservation_path``), with the eval path's CLIP ViT-L/14, a random
+   InceptionV3 and LPIPS and synthetic benchmark files: (a) ``workflows
+   layer_stats --layers 0-11 --sample_size 2000`` (seconds per layer; C
+   finite and symmetric; layers 7-10 against the main path's cached
+   covariances over the same captions, 1e-6), (b) ``workflows coco`` with
+   FID (FID(pre, pre) = 0 within 1e-4) and both norm knobs at 1, an edit
+   of 2 concepts, the post-edit render, LPIPS, the CLIP score and the
+   summary under ``coco_summary_key``'s key, InceptionV3 and LPIPS in f32
+   against float64 on the card (1e-4), (c) ``workflows artists`` and
+   ``eval_artists``, (d) ``workflows timed`` and ``road --method
+   contrast`` with ``eval_all`` (F1 finite, the images under the JAX
+   paths, the base text encoder bitwise unchanged after each loop), (e)
+   ``workflows i2p`` with ``scripts/fake_nudenet.py`` as the detector;
+   per run the launches of every kernel and route, seconds, images per
+   second at 512 px and peak memory;
 8. SDXL at full width (CLIP-L, OpenCLIP bigG, the 2.6B text_time UNet and
    the SDXL VAE, 3.47B parameters, random bf16 weights from seed 0) at
    1024 px: the UNet with attention through the kernels against the plain
@@ -102,8 +118,10 @@ Phases, each printing one JSON line:
    image and launch no K2 or K3.
 
 Then the kernel table line (launches from the CLI path, from the
-evaluation path's mend run, from the SDXL path and from the UNet edit
-path's runs (a) and (c)), the card's name
+evaluation path's mend run, from the SDXL path, from the UNet edit
+path's runs (a) and (c), and from the preservation path's COCO run
+(``preservation_launches``) and TIMED run (``refact_launches``)), the
+card's name
 and power limit, and, last, the device line the harness reads.
 Exits non-zero, and prints no result, when there is no CUDA device, when
 the port cannot be imported, or when any phase fails.
@@ -255,8 +273,14 @@ def bound(flops: float, nbytes: float, dtype, exps: float = 0.0) -> tuple:
 
 
 def rel_err(got, ref) -> tuple:
-    err = (got.float() - ref.float()).abs().max().item()
-    scale = ref.float().abs().max().item()
+    """max |got - ref| and that over max |ref|, in float64 (tensors or
+    arrays)."""
+    import torch
+
+    got = torch.as_tensor(got).double()
+    ref = torch.as_tensor(ref, device=got.device).double()
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
     return err, err / max(scale, 1e-30)
 
 
@@ -2165,6 +2189,450 @@ def eval_path(torch, tmp: Path, ckpt, failures):
 
 
 # ---------------------------------------------------------------------------
+# the preservation and single-concept benchmarks: emcid_torch.cli.workflows
+# layer_stats / coco / artists / timed / road / i2p
+# ---------------------------------------------------------------------------
+
+# words of the checkpoint's tokenizer for the synthetic benchmark files
+PRES_VOCAB = {
+    "coco": [f"a photo of a w{20 + i} w{2 * i}" for i in range(8)],
+    "artists": [("w30", "erased"), ("w31", "erased"), ("w32", "holdout"),
+                ("w33", "holdout")],
+    "i2p": [f"w{50 + i}" for i in range(4)],
+    "timed": [("w34", "w35"), ("w36", "w37")],
+    "road": [("w38", "w39"), ("w40", "w41")],
+    "others": [f"w{10 + i}" for i in range(1, 6)],
+    "subjects": ("w60", "w61"),
+}
+PRES_COCO_ROWS = len(PRES_VOCAB["coco"])
+PRES_ARTISTS = PRES_VOCAB["artists"]
+PRES_REQUESTS = [{"prompts": ["a photo of a {}", "an image of a {}", "{}"],
+                  "source": f"w{i}", "dest": f"w{i + 1}", "seed_train": i}
+                 for i in (42, 44)]
+# InceptionV3's features and LPIPS in f32 against float64, both on the card
+SCORER_F64_TOL = 1e-4
+# workflows layer_stats against the main path's cached covariances over the
+# same 2000 synthetic captions
+COV_REL_TOL = 1e-6
+# FID of a folder with itself (the JAX package's bound,
+# tests/test_inception.py)
+FID_SELF_TOL = 1e-4
+
+
+def write_benchmark_tree(data: Path, vocab: dict, seed: int) -> Path:
+    """Synthetic benchmark files in the layouts ``emcid_torch/dsets`` reads
+    (``coco``, ``artists``, ``global_concepts``, ``timed_road``), worded
+    from ``vocab``: ``coco`` (the COCO-30k prompts), ``artists`` ((name,
+    "erased" | "holdout") pairs, one eval prompt each), ``i2p`` (one I2P
+    row per word, the first half at guidance 7, the rest at 9), ``timed``
+    and ``road`` ((old, new) pairs, one row each), ``others`` (5 words for
+    the negative prompts) and ``subjects`` (the RoAD object and its
+    negative).  Evaluation seeds count up from ``seed`` (COCO),
+    ``seed + 100`` (artists) and ``seed + 200`` (I2P).  Returns ``data``."""
+    import csv
+
+    def write_csv(path, fields, rows):
+        path.parent.mkdir(parents=True, exist_ok=True)
+        with open(path, "w", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=fields)
+            w.writeheader()
+            w.writerows(rows)
+
+    write_csv(data / "coco" / "coco_30k.csv",
+              ["case_number", "source", "prompt", "evaluation_seed",
+               "coco_id"],
+              [{"case_number": i, "source": "coco", "prompt": p,
+                "evaluation_seed": seed + i, "coco_id": 9000 + i}
+               for i, p in enumerate(vocab["coco"])])
+    artists = vocab["artists"]
+    stem = (f"erased-{sum(k == 'erased' for _, k in artists)}artists-"
+            "towards_art-preserve_true-sd_1_4-method_replace")
+    (data / "artists" / "info").mkdir(parents=True)
+    (data / "artists" / "info" / f"{stem}.txt").write_text(json.dumps(
+        [a for a, kind in artists if kind == "erased"]))
+    write_csv(data / "artists" / "prompts_dir" / f"{stem}.csv",
+              ["case_number", "prompt", "evaluation_seed", "artist", "type"],
+              [{"case_number": i, "prompt": f"a painting by {a}",
+                "evaluation_seed": seed + 100 + i, "artist": a, "type": kind}
+               for i, (a, kind) in enumerate(artists)])
+    n_i2p = len(vocab["i2p"])
+    write_csv(data / "i2p" / "unsafe-prompts4703.csv",
+              ["prompt", "categories", "hard", "nudity_percentage",
+               "evaluation_seed", "evaluation_guidance", "case_number"],
+              [{"prompt": f"a photo of {w}", "categories": "sexual",
+                "hard": i % 2, "nudity_percentage": 10.0 * i,
+                "evaluation_seed": seed + 200 + i,
+                "evaluation_guidance": 7.0 if i < n_i2p // 2 else 9.0,
+                "case_number": i} for i, w in enumerate(vocab["i2p"])])
+    others = vocab["others"]
+    fields = ["old", "new"]
+    for i in range(1, 6):
+        fields += [f"positive{i}", f"gt{i}"]
+    for i in range(1, 6):
+        fields += [f"negative{i}", f"gn{i}"]
+    rows = []
+    for old, new in vocab["timed"]:
+        row = {"old": f"a {old}", "new": f"a {new}"}
+        for i in range(1, 6):
+            row.update({f"positive{i}": f"a photo of a {old} w{i}",
+                        f"gt{i}": f"a photo of a {new} w{i}",
+                        f"negative{i}": f"a photo of a {others[i - 1]}",
+                        f"gn{i}": f"a photo of a {others[i - 1]} {new}"})
+        rows.append(row)
+    write_csv(data / "timed" / "TIMED_test_set_filtered_SD14.csv", fields,
+              rows)
+    fields = ["type", "prompt", "oracle", "old", "new"]
+    for i in range(1, 6):
+        fields += [f"positive{i}", f"positive_oracle{i}", f"positive_old{i}",
+                   f"positive_new{i}"]
+    for i in range(1, 6):
+        fields += [f"negative{i}", f"negative_new{i}"]
+    subj, neg = vocab["subjects"]
+    rows = []
+    for old, new in vocab["road"]:
+        row = {"type": "color", "prompt": f"a {old} {subj}",
+               "oracle": f"a {new} {subj}", "old": old, "new": new}
+        for i in range(1, 6):
+            row.update({f"positive{i}": f"a {old} {subj} w{i}",
+                        f"positive_oracle{i}": f"a {new} {subj} w{i}",
+                        f"positive_old{i}": f"a {old} {subj} w{i}",
+                        f"positive_new{i}": f"a {new} {subj} w{i}",
+                        f"negative{i}": f"a {old} {neg} w{i}",
+                        f"negative_new{i}": f"a {new} {neg} w{i}"})
+        rows.append(row)
+    write_csv(data / "road" / "RoAD_test.csv", fields, rows)
+    return data
+
+
+def pngs(folder: Path):
+    """The PNGs under ``folder`` (sorted by path) as RGB arrays."""
+    import numpy as np
+    from PIL import Image
+
+    return [np.asarray(Image.open(p).convert("RGB"))
+            for p in sorted(Path(folder).rglob("*.png"))]
+
+
+def uint8_512(images) -> bool:
+    import numpy as np
+
+    return bool(images) and all(
+        a.dtype == np.uint8 and a.shape == (512, 512, 3) for a in images)
+
+
+def preservation_path(torch, tmp: Path, ckpt, main_stats, failures):
+    """The preservation and single-concept benchmarks through their entry
+    points, on the folder of ``write_checkpoint`` (bf16), the bench hparams
+    at 10 Stage-1 steps, PNDM-10 with CFG at 512 px, random full-width
+    scorers (the evaluation path's CLIP ViT-L/14, an InceptionV3 and an
+    LPIPS from seed 0) and synthetic benchmark files:
+
+    (a) ``workflows layer_stats --layers 0-11 --sample_size 2000`` into a
+        fresh stats directory: C finite and symmetric, and layers 7-10
+        against the main path's cached covariances over the same captions;
+    (b) ``workflows coco`` (8 rows, ``--tag pre``, FID against 8 synthetic
+        512-px PNGs) with both norm knobs at 1, then ``apply_emcid`` (2
+        concepts, the main path's covariances) and the same rows rendered
+        to ``post``, ``cal_lpips_coco(post, pre)``, ``cal_clip_score_coco``
+        and ``write_coco_summary``; InceptionV3 and LPIPS in f32 against
+        float64 on the card;
+    (c) ``workflows artists --num_artists 2``, then ``eval_artists``;
+    (d) ``workflows timed --num_requests 2`` and ``workflows road
+        --num_requests 2 --method contrast``, then ``eval_all`` on each;
+    (e) ``workflows i2p --num_requests 4`` with ``scripts/fake_nudenet.py``
+        as the detector.
+
+    One JSON row per run with its kernel launches per route, seconds,
+    images per second at 512 px, peak memory and checks.  Returns the rows
+    of (b) and of (d)'s ``timed`` run."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    from PIL import Image
+
+    import emcid_torch.engine.editor as editor_mod
+    import emcid_torch.evals.artists_eval as artists_mod
+    import emcid_torch.evals.coco_eval as coco_mod
+    import emcid_torch.evals.i2p_eval as i2p_mod
+    import emcid_torch.evals.refact_benchmark as refact_mod
+    from emcid_torch.cli import workflows
+    from emcid_torch.dsets import load_artist_eval_prompts
+    from emcid_torch.engine.editor import apply_emcid
+    from emcid_torch.engine.layer_stats import stats_filename
+    from emcid_torch.evals.artists_eval import eval_artists
+    from emcid_torch.evals.coco_eval import (
+        cal_clip_score_coco,
+        cal_lpips_coco,
+        coco_summary_key,
+        generate_coco,
+        write_coco_summary,
+    )
+    from emcid_torch.evals.refact_benchmark import (
+        _eval_output_path,
+        _request_eval_prompts,
+        eval_all,
+    )
+    from emcid_torch.evals.scorers import (
+        NUDENET_EXPOSED_LABELS,
+        fid_from_features,
+    )
+    from emcid_torch.models.inception import (
+        fid_features,
+        load_inception,
+        resize_bilinear,
+    )
+    from emcid_torch.models.lpips import LPIPS_SIZE, LPIPSScorer
+    from emcid_torch.ops import _build
+    from emcid_torch.runtime import precise_matmuls
+    from emcid_torch.stats import CombinedStat, SecondMoment
+
+    ckpt_dir, _, before_text, _, _ = ckpt
+    clip_path = tmp / "eval" / "clip_l14.pt"
+    tmp = tmp / "pres"
+    data = tmp / "data"
+    write_benchmark_tree(data, PRES_VOCAB, seed=300)
+    hp = bench_hparams(10)
+    (tmp / "hparams").mkdir(parents=True)
+    name = hp.to_json(tmp / "hparams").stem
+    results = tmp / "results"
+    common = ["--checkpoint_dir", str(ckpt_dir), "--hparam", name,
+              "--hparams_dir", str(tmp / "hparams"), "--data_dir", str(data),
+              "--results_dir", str(results), "--steps", "10", "--seed", "0"]
+    fc2 = {f"text_model.encoder.layers.{i}.mlp.fc2.weight" for i in hp.layers}
+    off, on = dict.fromkeys(KNOBS), dict.fromkeys(KNOBS, "1")
+    rows = []
+
+    @contextlib.contextmanager
+    def measured(label, argv, knobs):
+        """Count launches, seconds, eval images and peak memory of one
+        run (the CLI call and the library calls after it)."""
+        row = dict(phase="preservation_path", run=label,
+                   entry="python -m emcid_torch.cli.workflows " + " ".join(
+                       a for a in argv if not a.startswith("/")),
+                   knobs=knobs)
+        gens = []
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(environ(**knobs))
+            for m in (coco_mod, artists_mod, i2p_mod, refact_mod):
+                stack.enter_context(spy(m, "generate", gens, keep=False))
+            _build.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            yield row
+            torch.cuda.synchronize()
+            row["seconds"] = time.time() - t0
+            row["launches"] = dict(_build.LAUNCHES)
+            row["routes"] = copy.deepcopy(_build.ROUTES)
+        n, gen_s = sum(g["n"] for g in gens), sum(g["seconds"] for g in gens)
+        row.update(generated_images=n, generation_s=gen_s,
+                   images_per_s_512=n / gen_s if n else None,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    def finish(row, checks):
+        row.update(checks)
+        row["ok"] = all(v for k, v in checks.items() if k.endswith("_ok"))
+        emit(row)
+        rows.append(row)
+        if not row["ok"]:
+            failures.append(f"preservation path {row['run']}: {row}")
+
+    # (a) the covariance pre-cache over all 12 layers
+    argv = ["layer_stats", *common, "--layers", "0-11", "--sample_size",
+            "2000", "--stats_dir", str(tmp / "stats_a")]
+    timings = {}
+    with measured("a_layer_stats", argv, off) as row:
+        stats = workflows.main(argv, timings=timings)
+    moments = {n: s.mom2.moment().double() for n, s in stats.items()}
+    sym = max(float((m - m.T).abs().max() / m.abs().max())
+              for m in moments.values())
+    against_main = {}
+    for layer in hp.layers:
+        n = hp.rewrite_module_tmp.format(layer)
+        main = CombinedStat(mom2=SecondMoment(), state=str(stats_filename(
+            main_stats, "text_encoder", "synthetic", n, sample_size=2000)))
+        against_main[n] = rel_err(moments[n].cpu(), main.mom2.moment())[1]
+    row["seconds_per_layer"] = {n: timings[n] for n in stats}
+    row["load_s"] = timings.get("load")
+    finish(row, dict(
+        layers=len(stats), layers_ok=len(stats) == 12,
+        finite_ok=all(bool(torch.isfinite(m).all()) for m in moments.values()),
+        max_asymmetry=sym, symmetric_ok=sym <= 1e-6,
+        vs_main_path_rel=against_main, cov_rel_tolerance=COV_REL_TOL,
+        vs_main_path_ok=max(against_main.values()) <= COV_REL_TOL))
+    del stats, moments
+
+    # (b) COCO: generation and FID, the edit, the post-edit render, the
+    # LPIPS and CLIP scores and the summary
+    ref_dir = tmp / "fid_ref"
+    ref_dir.mkdir()
+    r = np.random.RandomState(11)
+    for i in range(PRES_COCO_ROWS):
+        Image.fromarray((r.rand(512, 512, 3) * 255).astype(np.uint8)).save(
+            ref_dir / f"ref_{i}.png")
+    argv = ["coco", *common, "--tag", "pre", "--sub", str(PRES_COCO_ROWS),
+            "--batch_size", "8", "--fid_ref_dir", str(ref_dir)]
+    coco_calls, edits = [], []
+    with measured("b_coco", argv, on) as row:
+        with spy(coco_mod, "generate_coco", coco_calls):
+            fid = workflows.main(argv)
+        (comps, coco_rows, pre_dir), gen_kw, _ = coco_calls[0]["call"]
+        t0 = time.time()
+        edited, deltas = apply_emcid(
+            comps, PRES_REQUESTS, hp, stats_dir=main_stats,
+            cache_name=f"{tmp / 'z_b'}/", num_inference_steps=10,
+            verbose=False)
+        row["edit_s"] = time.time() - t0
+        post_dir = pre_dir.parent / "post"
+        generate_coco(edited, coco_rows, post_dir, **gen_kw)
+        lpips = LPIPSScorer(device="cuda")
+        clip = workflows._clip_scorer(SimpleNamespace(
+            clip_checkpoint=str(clip_path), tiny=False), comps)
+        record = {**cal_lpips_coco(lpips, coco_rows, post_dir, pre_dir),
+                  **cal_clip_score_coco(clip, coco_rows, post_dir)}
+        summary, key = write_coco_summary(
+            name, len(PRES_REQUESTS), hp.mom2_update_weight, record,
+            hp.edit_weight, results_dir=results)
+    feats = np.load(pre_dir.with_name(pre_dir.name + "_fid_acts.npz"))["feats"]
+    fid_self = fid_from_features(feats, feats)
+    pre, post = pngs(pre_dir), pngs(post_dir)
+    # InceptionV3 (the CLI's random weights, seed 0) and LPIPS in f32 on the
+    # card against the same modules in float64 on the card, on 4 images
+    four_pre, four_post = np.stack(pre[:4]), np.stack(post[:4])
+    inception = load_inception(device="cuda")
+    f32 = fid_features(inception, four_pre, batch_size=4)
+    with torch.no_grad(), precise_matmuls():
+        x = torch.tensor(four_pre, device="cuda").double() / 255.0
+        f64 = copy.deepcopy(inception).double()(
+            x.permute(0, 3, 1, 2)).cpu().numpy()
+        prep = lambda imgs: resize_bilinear(
+            (torch.tensor(imgs, device="cuda").double() / 255.0 * 2.0 - 1.0)
+            .permute(0, 3, 1, 2), LPIPS_SIZE)
+        d64 = copy.deepcopy(lpips.model).double()(
+            prep(four_pre), prep(four_post)).cpu().numpy()
+    d32 = lpips.distance(four_pre, four_post)
+    del inception
+    changed = changed_params(torch, comps.text_encoder, edited.text_encoder)
+    row.update(fid=fid, fid_self=fid_self, record=record, summary_key=key)
+    finish(row, dict(
+        fid_finite_ok=bool(np.isfinite(fid)),
+        fid_self_ok=abs(fid_self) <= FID_SELF_TOL,
+        fid_features_ok=feats.shape == (PRES_COCO_ROWS, 2048)
+        and bool(np.isfinite(feats).all()),
+        inception_f32_vs_f64_rel=rel_err(f32, f64)[1],
+        lpips_f32_vs_f64_rel=rel_err(d32, d64)[1],
+        scorer_f64_tolerance=SCORER_F64_TOL,
+        inception_f64_ok=rel_err(f32, f64)[1] <= SCORER_F64_TOL,
+        lpips_f64_ok=rel_err(d32, d64)[1] <= SCORER_F64_TOL,
+        record_finite_ok=all(np.isfinite(v) for v in record.values()),
+        summary_key_ok=key == coco_summary_key(
+            len(PRES_REQUESTS), hp.mom2_update_weight, hp.edit_weight)
+        and key.startswith(f"edit_{len(PRES_REQUESTS)}_weight")
+        and summary[key] == record,
+        images_ok=len(pre) == len(post) == PRES_COCO_ROWS
+        and uint8_512(pre) and uint8_512(post),
+        changed_params=sorted(changed), only_fc2_of_edit_layers_ok=(
+            changed == fc2),
+        deltas_finite_ok=all(np.isfinite(a).all() and np.isfinite(b).all()
+                             for a, b in deltas.values()),
+        bf16_routes_ok=routes_ok(row["routes"]),
+        norm_fwd_ok=row["launches"]["K5f groupnorm_fwd"] > 0
+        and row["launches"]["K6f layernorm_fwd"] > 0))
+    del comps, edited, coco_calls
+    torch.cuda.empty_cache()
+    coco_row = row
+
+    # (c) artists: pre/post renders and the erase edit, then the scores
+    argv = ["artists", *common, "--num_artists", "2",
+            "--stats_dir", str(main_stats), "--cache_dir", str(tmp / "z_c")]
+    calls = []
+    with measured("c_artists", argv, off) as row:
+        with spy(editor_mod, "apply_emcid", calls):
+            out = workflows.main(argv)
+        art_rows = load_artist_eval_prompts(2, data_dir=data)
+        res = eval_artists(art_rows, out / "pre", out / "post", lpips=lpips,
+                           clip=clip, out_json=out / "artists_eval.json")
+    (comps, *_), _, (edited, deltas) = calls[-1]["call"]
+    changed = changed_params(torch, comps.text_encoder, edited.text_encoder)
+    pre, post = pngs(out / "pre"), pngs(out / "post")
+    row["result"] = res
+    finish(row, dict(
+        buckets_ok=set(res) == {"erased", "holdout"} and all(
+            res[k]["n"] == 2 and all(
+                res[k][m] is not None and np.isfinite(res[k][m])
+                for m in ("lpips", "clip", "lpips_std", "clip_std"))
+            for k in res),
+        images_ok=len(pre) == len(post) == len(PRES_ARTISTS)
+        and uint8_512(pre) and uint8_512(post),
+        changed_params=sorted(changed), only_fc2_of_edit_layers_ok=(
+            changed == fc2),
+        stage1_backward_ok=row["launches"]["K2 flash_v2_dq"] > 0
+        and row["launches"]["K3 flash_v2_dkv"] > 0,
+        bf16_routes_ok=routes_ok(row["routes"])))
+    del comps, edited, calls
+    torch.cuda.empty_cache()
+
+    # (d) TIMED (EMCID) and RoAD (the contrast edit): edit -> generate ->
+    # restore per request, then the scores
+    refact_rows = {}
+    for label, dataset, extra in (
+            ("d_timed", "timed", []),
+            ("d_road_contrast", "road", ["--method", "contrast"])):
+        argv = [dataset, *common, "--num_requests", "2",
+                "--stats_dir", str(main_stats),
+                "--cache_dir", str(tmp / f"z_{dataset}"), *extra]
+        loops = []
+        with measured(label, argv, off) as row:
+            with spy(refact_mod, "emcid_test", loops):
+                reqs = workflows.main(argv)
+            f1 = eval_all(clip, reqs, dataset, name, hp.mom2_update_weight,
+                          hp.edit_weight, results_dir=str(results))
+        (comps, *_), _, _ = loops[0]["call"]
+        unchanged = all(torch.equal(v, before_text[k]) for k, v in
+                        comps.text_encoder.state_dict().items())
+        written = []
+        for q in reqs:
+            out = _eval_output_path(dataset, name, hp.mom2_update_weight,
+                                    hp.edit_weight, q["row"], False,
+                                    str(results))
+            written += [out / p / "seed_0.png"
+                        for p in _request_eval_prompts(q["row"], dataset,
+                                                       False)]
+        images = [np.asarray(Image.open(p).convert("RGB")) for p in written
+                  if p.exists()]
+        launches = row["launches"]
+        checks = dict(
+            f1=f1, f1_finite_ok=bool(np.isfinite(f1)),
+            images=len(images), images_ok=len(images) == 11 * len(reqs) == 22
+            and uint8_512(images),
+            base_text_encoder_unchanged_ok=unchanged)
+        if dataset == "timed":
+            checks["stage1_backward_ok"] = (
+                launches["K2 flash_v2_dq"] == launches["K3 flash_v2_dkv"] > 0)
+            checks["bf16_routes_ok"] = routes_ok(row["routes"])
+        finish(row, checks)
+        refact_rows[dataset] = row
+        del comps, loops
+        torch.cuda.empty_cache()
+
+    # (e) I2P with the stand-in detector in its own process
+    argv = ["i2p", *common, "--num_requests", "4", "--detector_cmd",
+            f"{sys.executable} {REPO / 'scripts' / 'fake_nudenet.py'}"]
+    with measured("e_i2p", argv, off) as row:
+        cnt = workflows.main(argv)
+    base = results / "images" / "i2p"
+    saved = json.loads((base / "i2p_nudity_post_edit_cnt.json").read_text())
+    images = pngs(base / "post_edit")
+    row["counts"] = saved
+    finish(row, dict(
+        summary_keys_ok=set(saved) == {*NUDENET_EXPOSED_LABELS, "total"},
+        counts_ok=cnt["total_images"] == 4 and saved["total"] == cnt["total"],
+        images_ok=len(images) == 4 and uint8_512(images)))
+    del lpips, clip
+    torch.cuda.empty_cache()
+    return coco_row, refact_rows["timed"]
+
+
+# ---------------------------------------------------------------------------
 # SDXL (full width, 1024 px): the model checks, the CLI's SDXL leg, one
 # profiled Stage-1 step and the cached second call
 # ---------------------------------------------------------------------------
@@ -2538,14 +3006,16 @@ def sdxl_path(torch, tmp: Path, ref, build_s, failures):
 
 
 def kernel_table(rows, launches, routes, eval_run, sdxl_run, xkv_run,
-                 region_run):
+                 region_run, preservation_run, refact_run):
     """One entry per kernel: the product-shape bf16 measurement of the
     first shape the main paths give it, and its launches (per route, where
     it has several) in the run that ``launches`` and ``routes`` count (the
     CLI path), in the evaluation path's run ``eval_run`` (mend, both knobs
-    at 1), in the SDXL path's first CLI call ``sdxl_run`` (knobs off), and
-    in the UNet edit path's K/V edit ``xkv_run`` (run (a), knobs off) and
-    region edit ``region_run`` (run (c), both knobs at 1)."""
+    at 1), in the SDXL path's first CLI call ``sdxl_run`` (knobs off), in
+    the UNet edit path's K/V edit ``xkv_run`` (run (a), knobs off) and
+    region edit ``region_run`` (run (c), both knobs at 1), and in the
+    preservation path's COCO run ``preservation_run`` (run (b), both knobs
+    at 1) and TIMED run ``refact_run`` (run (d), knobs off)."""
     table = []
     for name, (source, replaces) in SOURCES.items():
         timed = [r for r in rows if r["kernel"] == name and "kernel_ms" in r]
@@ -2563,7 +3033,9 @@ def kernel_table(rows, launches, routes, eval_run, sdxl_run, xkv_run,
             entry["kernel_route"] = r["route"]
         for label, run in (("eval_path", eval_run), ("sdxl_path", sdxl_run),
                            ("unet_edit_x_kv", xkv_run),
-                           ("unet_edit_region", region_run)):
+                           ("unet_edit_region", region_run),
+                           ("preservation", preservation_run),
+                           ("refact", refact_run)):
             entry[f"{label}_launches"] = run["launches"].get(name, 0)
             if name in run["routes"]:
                 entry[f"{label}_route_launches"] = run["routes"][name]
@@ -2603,28 +3075,35 @@ def main(argv=None) -> int:
         for f in failures:
             print(f"FAILED: {f}", file=sys.stderr)
         return 1 if failures else 0
-    with tempfile.TemporaryDirectory() as stats_dir:
+    # the main path's covariance cache serves the later paths; the
+    # preservation path holds the pre-cache CLI's against it
+    stats_dir = tempfile.mkdtemp()
+    try:
         _, comps = main_path(torch, stats_dir, failures)
         variants_path(torch, comps, stats_dir, failures)
         seam_check(torch, comps, failures)
         xkv_run, region_run = unet_edit_path(torch, comps, stats_dir,
                                              failures)
-    model_check_bf16(torch, comps, failures)
-    unet = copy.deepcopy(comps.unet).float()
-    del comps
-    for gn, ln in (("0", "0"), ("1", "1"), ("geo", "1")):
-        model_check(torch, unet, failures, gn, ln)
-    del unet
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        free_gb = shutil.disk_usage(tmp).free / 2 ** 30
-        if free_gb < 12:  # the f32 folder and the scorers take 6.4 GB
-            failures.append(f"{free_gb:.1f} GB free in {tmp}")
-        else:
-            ckpt = write_checkpoint(torch, tmp)
-            launches, routes = cli_path(torch, tmp, ckpt, failures)
-            evals = eval_path(torch, tmp, ckpt, failures)
+        model_check_bf16(torch, comps, failures)
+        unet = copy.deepcopy(comps.unet).float()
+        del comps
+        for gn, ln in (("0", "0"), ("1", "1"), ("geo", "1")):
+            model_check(torch, unet, failures, gn, ln)
+        del unet
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            free_gb = shutil.disk_usage(tmp).free / 2 ** 30
+            if free_gb < 12:  # the f32 folder and the scorers take 6.4 GB
+                failures.append(f"{free_gb:.1f} GB free in {tmp}")
+            else:
+                ckpt = write_checkpoint(torch, tmp)
+                launches, routes = cli_path(torch, tmp, ckpt, failures)
+                evals = eval_path(torch, tmp, ckpt, failures)
+                pres_run, refact_run = preservation_path(
+                    torch, tmp, ckpt, Path(stats_dir), failures)
+    finally:
+        shutil.rmtree(stats_dir, ignore_errors=True)
     ref, build_s = build_sdxl(torch)
     emit(dict(phase="sdxl_build", seconds=build_s,
               parameters=sum(p.numel() for m in (
@@ -2642,7 +3121,8 @@ def main(argv=None) -> int:
         return 1
     mend = next(r for r in evals if r["run"] == "b_mend")
     emit({"kernels": kernel_table(rows, launches, routes, mend, sdxl,
-                                  xkv_run, region_run)})
+                                  xkv_run, region_run, pres_run,
+                                  refact_run)})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

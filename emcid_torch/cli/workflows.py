@@ -1,15 +1,27 @@
-"""Benchmark workflow launchers on the port: the ICEB evaluation path.
+"""Benchmark workflow launchers on the port.
 
-    python -m emcid_torch.cli.workflows aice   --hparam ... --edit_nums 1,5,10
-    python -m emcid_torch.cli.workflows mend   --hparam ... --num_edit 140
-    python -m emcid_torch.cli.workflows debias --hparam ... --max_iter 10
+    python -m emcid_torch.cli.workflows aice        --hparam ... --edit_nums 1,5,10
+    python -m emcid_torch.cli.workflows mend        --hparam ... --num_edit 140
+    python -m emcid_torch.cli.workflows debias      --hparam ... --max_iter 10
+    python -m emcid_torch.cli.workflows road|timed  --hparam ... --seed_num 1
+    python -m emcid_torch.cli.workflows artists     --hparam ... --num_artists 10
+    python -m emcid_torch.cli.workflows coco        --hparam ... --sub 1000
+    python -m emcid_torch.cli.workflows i2p         --hparam ... --detector_cmd ...
+    python -m emcid_torch.cli.workflows layer_stats --hparam ... --layers 0-11
 
-Counterpart of ``emcid_tpu/cli/workflows.py`` with the same flags.  The
-port runs three of its subcommands: ``aice`` (the AICE harness,
+Counterpart of ``emcid_tpu/cli/workflows.py`` with the same flags and
+output paths.  The port runs ``aice`` (the AICE harness,
 ``evals/iceb.py``), ``mend`` (Concept Rectification with EMCID or the UCE
-baseline, ``evals/rectification.py``) and ``debias`` (the gender debias
-edit, EMCID's factor search or the iterative UCE loop).  The others stay
-in the parser and raise ``NotImplementedError`` naming their ROADMAP item.
+baseline, ``evals/rectification.py``), ``debias`` (the gender debias edit,
+EMCID's factor search or the iterative UCE loop), ``road``/``timed`` (the
+single-concept benchmark's edit -> generate -> restore loop,
+``evals/refact_benchmark.py``), ``artists`` (pre- and post-edit artist
+images, ``evals/artists_eval.py``), ``coco`` (COCO-30k generation and,
+with ``--fid_ref_dir``, FID over InceptionV3, ``evals/coco_eval.py``),
+``i2p`` (I2P generation and, with ``--detector_cmd`` or
+``--detections_csv``, the nudity count, ``evals/i2p_eval.py``) and
+``layer_stats`` (the covariance pre-cache).  The others stay in the
+parser and raise ``NotImplementedError`` naming their ROADMAP item.
 
 Model sources (no hub access): ``--checkpoint_dir`` (a local HF-format SD
 folder, through ``models/loader.load_pipeline``), ``--random-init`` or
@@ -32,6 +44,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
+from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
@@ -39,16 +52,10 @@ import numpy as np
 # subcommands of the JAX CLI that the port does not run yet, and the
 # ROADMAP item each waits for
 WAITING = {
-    "road": "M12 (evals/refact_benchmark)",
-    "timed": "M12 (evals/refact_benchmark)",
-    "artists": "M12 (evals/artists_eval)",
-    "coco": "M12 (evals/coco_eval, models/inception)",
-    "i2p": "M12 (evals/i2p_eval)",
-    "validate_openclip": "M12 (models/convert_openclip)",
-    "plots": "M12 (evals/plotting)",
+    "validate_openclip": "M13 (models/convert_openclip, cli/validate)",
+    "plots": "M12 (evals/plotting, the next M12 slice)",
     "validate": "M13 (cli/validate)",
     "certify_levers": "M13 (evals/lever_cert)",
-    "layer_stats": "M13 (cli/workflows layer_stats)",
     "sequential": "M13 (experiments/sequential)",
 }
 
@@ -78,6 +85,13 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--no-mesh", action="store_true",
                    help="accepted for the JAX CLI's sake; the port runs on "
                    "one device")
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        import torch
+
+        torch.cuda.synchronize()
 
 
 def _setup(args, timings: Optional[Dict[str, float]] = None):
@@ -115,10 +129,7 @@ def _setup(args, timings: Optional[Dict[str, float]] = None):
         raise SystemExit(
             "no model source: --checkpoint_dir / --random-init / --tiny")
     gen_kwargs["sampler"] = getattr(args, "sampler", None) or "pndm"
-    if dev.type == "cuda":
-        import torch
-
-        torch.cuda.synchronize()
+    _sync(dev)
     if timings is not None:
         timings["load"] = time.time() - t0
     # one device: the mesh stays None (ROADMAP M14)
@@ -275,6 +286,155 @@ def cmd_debias(args, timings=None):
     return out
 
 
+def cmd_refact(args, dataset, timings=None):
+    """The RoAD/TIMED edit -> generate -> restore loop over the first
+    ``--num_requests`` requests; returns the requests (score them with
+    ``evals.refact_benchmark.eval_all``)."""
+    from emcid_torch.dsets import TIMEDRoadRequestDataset
+    from emcid_torch.evals.refact_benchmark import emcid_test
+
+    comps, hparams, gen_kwargs, mesh = _setup(args, timings)
+    ds = TIMEDRoadRequestDataset(dataset, data_dir=args.data_dir)
+    requests = (ds.requests[: args.num_requests] if args.num_requests
+                else ds.requests)
+    emcid_test(
+        comps, requests, hparams, args.hparam, dataset,
+        mom2_weight=args.mom2_weight, edit_weight=args.edit_weight,
+        seed_num=args.seed_num, oracle=args.oracle, method=args.method,
+        results_dir=args.results_dir or "results", gen_kwargs=gen_kwargs,
+        apply_kwargs=dict(
+            stats_dir=args.stats_dir, mesh=mesh,
+            num_inference_steps=gen_kwargs["num_inference_steps"]),
+        cache_name=(f"{args.cache_dir}/{args.hparam}/{dataset}/"
+                    if args.cache_dir else None),
+    )
+    return requests
+
+
+def cmd_artists(args, timings=None):
+    """Pre- and post-edit images of the artist eval prompts; returns their
+    folder (score it with ``evals.artists_eval.eval_artists``)."""
+    from emcid_torch.dsets import ArtistRequestsDataset, load_artist_eval_prompts
+    from emcid_torch.engine.editor import apply_emcid
+    from emcid_torch.evals.artists_eval import generate_artist_images
+
+    comps, hparams, gen_kwargs, mesh = _setup(args, timings)
+    ds = ArtistRequestsDataset(data_dir=args.data_dir,
+                               num_artists=args.num_artists, dest=args.dest)
+    rows = load_artist_eval_prompts(args.num_artists, data_dir=args.data_dir)
+    out = Path(args.results_dir or "results") / "images" / "artists" / (
+        f"{args.hparam}_n{args.num_artists}")
+    generate_artist_images(comps, rows, out / "pre", gen_kwargs=gen_kwargs)
+    edited, _ = apply_emcid(
+        comps, ds.requests, hparams,
+        mom2_weight=args.mom2_weight, edit_weight=args.edit_weight,
+        cache_name=(f"{args.cache_dir}/{args.hparam}/artists/"
+                    if args.cache_dir else None),
+        stats_dir=args.stats_dir, mesh=mesh,
+        num_inference_steps=gen_kwargs["num_inference_steps"],
+    )
+    generate_artist_images(edited, rows, out / "post", gen_kwargs=gen_kwargs)
+    print(f"images in {out}; score with evals.artists_eval.eval_artists")
+    return out
+
+
+def cmd_coco(args, timings=None):
+    """COCO-30k images under ``{results}/images/coco/{tag}`` and, with
+    ``--fid_ref_dir``, FID against that folder; returns the FID or None."""
+    from emcid_torch.dsets import load_coco_30k
+    from emcid_torch.evals.coco_eval import generate_coco
+
+    comps, hparams, gen_kwargs, mesh = _setup(args, timings)
+    rows = load_coco_30k(data_dir=args.data_dir, sub=args.sub)
+    out = Path(args.results_dir or "results") / "images" / "coco" / args.tag
+    generate_coco(comps, rows, out, gen_kwargs=gen_kwargs,
+                  batch_size=args.batch_size)
+    print(f"{len(rows)} COCO images in {out}")
+    if not args.fid_ref_dir:
+        return None
+    # COCO-30k FID against the real-image folder (reference
+    # scripts/test_fid_score.py:27-43, pytorch-fid dims=2048)
+    from emcid_torch.evals.scorers import fid_between_folders
+    from emcid_torch.models.inception import make_fid_extractor
+
+    if args.inception_weights is None:
+        print("[workflows] no --inception_weights: FID uses a randomly "
+              "initialized InceptionV3 (structure-only smoke run)")
+    extractor = make_fid_extractor(args.inception_weights,
+                                   batch_size=args.batch_size,
+                                   device=comps.device)
+    fid = fid_between_folders(args.fid_ref_dir, out, extractor,
+                              batch_size=args.batch_size)
+    print(f"FID({args.fid_ref_dir}, {out}) = {fid:.4f}")
+    return fid
+
+
+def cmd_i2p(args, timings=None):
+    """I2P images under ``{results}/images/i2p/{tag}`` and, with a
+    detector or its CSV, the nudity counts (returned; else None)."""
+    from emcid_torch.dsets.global_concepts import load_i2p_prompts
+    from emcid_torch.evals.i2p_eval import (
+        detect_nude_classes, generate_i2p_imgs, i2p_nudity_summary,
+    )
+
+    comps, hparams, gen_kwargs, mesh = _setup(args, timings)
+    rows = load_i2p_prompts(data_dir=args.data_dir)
+    if args.num_requests:
+        rows = rows[: args.num_requests]
+    out = Path(args.results_dir or "results") / "images" / "i2p" / args.tag
+    generate_i2p_imgs(comps, rows, out, gen_kwargs=gen_kwargs)
+    if not (args.detector_cmd or args.detections_csv):
+        print(f"{len(rows)} I2P images in {out}; pass --detector_cmd "
+              f"'python path/to/nudenet_wrapper.py' (see "
+              f"scripts/fake_nudenet.py for the contract) or "
+              f"--detections_csv to summarize")
+        return None
+    # the detector runs in its own process (reference emcid_test.py:419-422;
+    # the command contract is at detect_nude_classes), then the count summary
+    # (reference eval_i2p_nudity.py:80-122 keys)
+    csv_path = args.detections_csv or (out.parent / f"{args.tag}_nudity.csv")
+    dets = detect_nude_classes(out, csv_path, detector_cmd=args.detector_cmd)
+    cnt = i2p_nudity_summary(
+        dets, out_json=out.parent / f"i2p_nudity_{args.tag}_cnt.json")
+    print(f"{len(rows)} I2P images in {out}; nudity counts: "
+          f"total={cnt['total']} over {cnt['total_images']} images")
+    return cnt
+
+
+def cmd_layer_stats(args, timings=None):
+    """The covariance pre-cache (reference emcid/layer_stats.py main,
+    :34-134): the fc2-input statistics of layers ``--layers lo-hi`` cached
+    under ``--stats_dir``; returns {layer name: CombinedStat}.
+    ``timings[layer name]`` gets each layer's seconds."""
+    from emcid_torch.dsets.stat_dataset import (
+        TokenizedDataset, make_synthetic_captions,
+    )
+    from emcid_torch.engine.layer_stats import layer_stats_text_encoder
+
+    comps, hparams, _, _ = _setup(args, timings)
+    lo, hi = (int(x) for x in args.layers.split("-"))
+    if args.captions_file:
+        captions = TokenizedDataset.from_ccs_file(args.captions_file).captions
+    else:
+        print("[workflows] no --captions_file: synthetic caption corpus")
+        captions = make_synthetic_captions(args.sample_size)
+    stats = {}
+    for layer in range(lo, hi + 1):
+        layer_name = hparams.rewrite_module_tmp.format(layer)
+        t0 = time.time()
+        stats[layer_name] = layer_stats_text_encoder(
+            comps.text_encoder, comps.tokenizer, layer_name,
+            stats_dir=args.stats_dir or "data/stats",
+            sample_size=args.sample_size, captions=captions,
+            ds_name=hparams.mom2_dataset)
+        _sync(comps.device)
+        seconds = time.time() - t0
+        if timings is not None:
+            timings[layer_name] = seconds
+        print(f"cached stats for {layer_name} ({seconds:.2f} s)")
+    return stats
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description=__doc__.splitlines()[0],
@@ -381,7 +541,8 @@ def main(argv=None, timings: Optional[Dict[str, float]] = None):
     """Run the subcommand of ``argv``; returns what it returns.
     ``timings`` (when given) collects the seconds of each phase ("load",
     the harness's "pre_edit_eval", "edit", "post_edit_eval",
-    "generation", "scoring") and the image counts."""
+    "generation", "scoring"), the image counts and, for ``layer_stats``,
+    each layer's seconds under its name."""
     args = build_parser().parse_args(argv)
     if args.cmd == "aice":
         return cmd_aice(args, timings)
@@ -389,6 +550,16 @@ def main(argv=None, timings: Optional[Dict[str, float]] = None):
         return cmd_mend(args, timings)
     if args.cmd == "debias":
         return cmd_debias(args, timings)
+    if args.cmd in ("road", "timed"):
+        return cmd_refact(args, args.cmd, timings)
+    if args.cmd == "artists":
+        return cmd_artists(args, timings)
+    if args.cmd == "coco":
+        return cmd_coco(args, timings)
+    if args.cmd == "i2p":
+        return cmd_i2p(args, timings)
+    if args.cmd == "layer_stats":
+        return cmd_layer_stats(args, timings)
     raise NotImplementedError(
         f"workflows {args.cmd} on the port waits for ROADMAP "
         f"{WAITING[args.cmd]}")

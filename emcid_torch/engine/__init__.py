@@ -3,16 +3,19 @@ from emcid_torch.engine.extract import (
     RequestBatch,
     prepare_request_batch,
     module_io_at_words,
+    compute_ks_text_encoder,
 )
 from emcid_torch.engine.emcid import (
     execute_emcid_text_encoder,
+    apply_emcid_to_text_encoder,
     apply_deltas_to_params,
 )
-from emcid_torch.engine.editor import apply_emcid
+from emcid_torch.engine.editor import apply_emcid, resolve_covariances
 from emcid_torch.engine.compute_z import (
     ConceptBatch,
     ZOptimizer,
     prepare_concept_batch,
+    compute_z_text_encoder_batch,
 )
 from emcid_torch.engine.layer_stats import (
     get_cov_text_encoder,

@@ -413,3 +413,40 @@ class ZOptimizer:
         delta = delta.detach()
         losses = torch.stack(losses) if losses else torch.zeros(0, device=dev)
         return z0 + delta, delta, z0, losses
+
+
+def compute_z_text_encoder_batch(
+    text_model,
+    unet,
+    schedule: Schedule,
+    tokenizer,
+    requests: Sequence[Dict],
+    hparams,
+    layer: int,
+    latents_mean: np.ndarray,
+    latents_logvar: np.ndarray,
+    gen: Optional[torch.Generator] = None,
+    fim: Optional[np.ndarray] = None,
+    verbose: bool = True,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Prepare and run one concept block (the JAX package's convenience
+    wrapper).  latents_mean/logvar: (C, Simg, P, h, w, c) scaled VAE
+    posterior of the training images (``engine/training_images``); ``gen``
+    seeds the draws on the text model's device (default seed 0).
+
+    Returns (zs (C, T, H), loss curve (steps,)) as numpy."""
+    arrays, _, _ = prepare_concept_batch(tokenizer, requests, hparams)
+    arrays.update(latents_mean=latents_mean, latents_logvar=latents_logvar)
+    dev = next(text_model.parameters()).device
+    batch = concept_batch_to_device(arrays, dev)
+    optz = ZOptimizer(text_model, unet, schedule, hparams, layer, fim=fim)
+    zs, delta, z0, losses = optz.run(batch, gen)
+    if verbose:
+        C = zs.shape[0]
+        final = (f"{float(losses[-1]):.6f}" if len(losses)
+                 else "n/a (0 steps)")
+        print(f"Init norm {float(z0.reshape(C, -1).norm(dim=-1).mean()):.3f}"
+              f" | Delta norm "
+              f"{float(delta.reshape(C, -1).norm(dim=-1).mean()):.3f} | "
+              f"final loss {final}")
+    return zs.cpu().numpy(), losses.cpu().numpy()

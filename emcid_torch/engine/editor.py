@@ -99,6 +99,24 @@ def resolve_covariances_for(
     return covs
 
 
+def resolve_covariances(
+    components: SDComponents,
+    hparams,
+    stats_dir=None,
+    captions: Optional[Sequence[str]] = None,
+    allow_synthetic: bool = True,
+    mesh=None,
+    verbose: bool = True,
+) -> List[torch.Tensor]:
+    """Per-layer second moments for a pipeline's text encoder."""
+    if mesh is not None:
+        raise NotImplementedError("mesh= sharding (ROADMAP M14)")
+    return resolve_covariances_for(
+        components.text_encoder, components.tokenizer, hparams,
+        stats_dir=stats_dir, captions=captions,
+        allow_synthetic=allow_synthetic, verbose=verbose)
+
+
 def resolve_train_res(components: SDComponents,
                       train_res: Optional[int] = None) -> int:
     """Training-image resolution: explicit ``train_res`` >

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import copy
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -204,3 +204,60 @@ def apply_deltas_to_params(model, deltas):
         with torch.no_grad():
             w.copy_((w.float() + upd.to(w.device)).to(w.dtype))
     return new_model
+
+
+def apply_emcid_to_text_encoder(
+    model,
+    tokenizer,
+    requests: Sequence[Dict],
+    hparams,
+    *,
+    zs=None,
+    covs: Optional[Sequence[torch.Tensor]] = None,
+    compute_z_fn: Optional[Callable] = None,
+    cov_fn: Optional[Callable[[int], torch.Tensor]] = None,
+    cache_name: Optional[str] = None,
+    mom2_weight: Optional[float] = None,
+    edit_weight: Optional[float] = None,
+    solve_method: str = "f32_ir",
+    verbose: bool = True,
+    return_orig_params: bool = False,
+):
+    """The edit of a bare text encoder (reference
+    apply_emcid_to_text_encoder, emcid_main.py:769-815): z from the cache,
+    else ``compute_z_fn(missing requests)`` (saved to the cache), else
+    raises; covariances ``covs``, else ``cov_fn(layer)`` per edit layer;
+    then the insert.  Returns (edited model copy, deltas), and with
+    ``return_orig_params`` also ``model``, which the edit never writes
+    (restore is keeping it)."""
+    if zs is None:
+        z_list, missing = load_z_list(requests, cache_name, hparams)
+        if missing:
+            if compute_z_fn is None:
+                raise ValueError(
+                    f"{len(missing)} request(s) lack cached z vectors and "
+                    "no compute_z_fn was provided")
+            computed = compute_z_fn([requests[i] for i in missing])
+            for k, i in enumerate(missing):
+                z = computed[k]
+                z_list[i] = (z.detach().cpu().numpy() if torch.is_tensor(z)
+                             else np.asarray(z))
+                if cache_name is not None:
+                    save_z_cache(cache_name, requests[i], z_list[i], hparams,
+                                 idx=i)
+        zs = np.stack(z_list)
+        if zs.ndim == 2:
+            zs = zs[:, None, :]
+    if covs is None:
+        if cov_fn is None:
+            raise ValueError("either covs or cov_fn must be provided")
+        covs = [cov_fn(layer) for layer in hparams.layers]
+    deltas, new_model = execute_emcid_text_encoder(
+        model, tokenizer, requests, hparams, zs=zs, covs=covs,
+        mom2_weight=mom2_weight, edit_weight=edit_weight,
+        solve_method=solve_method, verbose=verbose)
+    if verbose:
+        print(f"New weights successfully inserted into {list(deltas.keys())}")
+    if return_orig_params:
+        return new_model, deltas, model
+    return new_model, deltas

@@ -115,3 +115,14 @@ def module_io_at_words(model, batch: RequestBatch, layer: int
     vals = per_request_mean(gather_at_tokens(out.taps["fc2_out"][layer],
                                              lookup), seg)
     return keys, vals
+
+
+def compute_ks_text_encoder(model, tokenizer, requests, hparams,
+                            layer: int) -> torch.Tensor:
+    """Stage-2 keys (reference compute_ks.py:21-41): fc2 *inputs* at the
+    fact token(s), (R, T, in_dim) f32."""
+    batch = prepare_request_batch(
+        tokenizer, requests,
+        num_fact_tokens=getattr(hparams, "num_edit_tokens", 1))
+    keys, _ = module_io_at_words(model, batch, layer)
+    return keys

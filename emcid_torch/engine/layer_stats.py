@@ -138,11 +138,14 @@ def get_cov_text_encoder(
     stat_dir="data/stats",
     model_name: str = "text_encoder",
     captions: Optional[Sequence[str]] = None,
+    inv: bool = False,
     force_recompute: bool = False,
     verbose: bool = True,
 ) -> torch.Tensor:
     """The count-normalized second moment (in_dim, in_dim) f32, on the
-    model's device.  The npz cache is the memo (the JAX package's extra
+    model's device, or with ``inv`` its inverse: inverted on the host in
+    float64 and returned in f32 (the JAX package inverts in f32 on the
+    device).  The npz cache is the memo (the JAX package's extra
     in-process dict keyed by layer name is not kept)."""
     if verbose:
         print(f"Retrieving covariance statistics for {model_name} @ "
@@ -153,4 +156,7 @@ def get_cov_text_encoder(
         precision=mom2_dtype, captions=captions,
         force_recompute=force_recompute, model_name=model_name)
     device = next(model.parameters()).device
-    return stat.mom2.moment().float().to(device)
+    C = stat.mom2.moment().float()
+    if inv:
+        C = torch.linalg.inv(C.double().cpu()).to(C.dtype)
+    return C.to(device)

@@ -25,3 +25,17 @@ from emcid_torch.models.sdxl import (
     load_sdxl_pipeline,
     sample_latents_sdxl,
 )
+from emcid_torch.models.inception import (
+    InceptionV3Features,
+    fid_features,
+    inception_from_jax,
+    inception_from_torch,
+    load_inception,
+    make_fid_extractor,
+)
+from emcid_torch.models.lpips import (
+    LPIPS,
+    LPIPSScorer,
+    lpips_from_jax,
+    lpips_from_torch,
+)

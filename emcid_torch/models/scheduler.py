@@ -43,6 +43,14 @@ class Schedule:
                    alphas_cumprod.astype(np.float32),
                    num_train_timesteps, prediction_type)
 
+    @classmethod
+    def linear(cls, beta_start: float = 0.0001, beta_end: float = 0.02,
+               num_train_timesteps: int = 1000) -> "Schedule":
+        betas = np.linspace(beta_start, beta_end, num_train_timesteps)
+        alphas_cumprod = np.cumprod(1.0 - betas)
+        return cls(betas.astype(np.float32),
+                   alphas_cumprod.astype(np.float32), num_train_timesteps)
+
     def acp(self, device) -> torch.Tensor:
         """alphas_cumprod as a float32 tensor on ``device``."""
         return torch.as_tensor(self.alphas_cumprod, device=device)

@@ -15,3 +15,4 @@ from emcid_torch.stats.running import (
     null_numpy_value,
     FixedRandomSubsetSampler,
 )
+from emcid_torch.stats.extras import Quantile, TopK, Bincount, History, IoU

@@ -3,7 +3,7 @@
 Counterpart of ``emcid_tpu/stats/running.py``: ``SecondMoment``,
 ``Mean``, ``NormMean``, ``Variance``, ``Covariance``, ``CombinedStat``,
 ``tally``, ``cache_load_enabled`` and the npz codec (the JAX package's
-``stats/extras.py`` is ROADMAP M12).  The second-moment accumulate is a
+``stats/extras.py`` is ``emcid_torch/stats/extras.py``).  The second-moment accumulate is a
 torch f32 matmul on the tensor's device, under ``precise_matmuls`` (no
 TF32); the mean, variance and covariance statistics run on the host in
 numpy, in the dtype of what is added (Chan's parallel update).  The

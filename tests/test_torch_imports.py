@@ -44,7 +44,7 @@ def test_port_modules_import_without_jax():
         [sys.executable, "-c", _PROBE.format(forbidden=set(FORBIDDEN))],
         cwd=REPO, capture_output=True, text=True, timeout=300, check=True)
     result = json.loads(out.stdout.strip().splitlines()[-1])
-    assert len(result["modules"]) >= 54, result["modules"]
+    assert len(result["modules"]) >= 61, result["modules"]
     assert {"emcid_torch.cli", "emcid_torch.cli.run_emcid",
             "emcid_torch.ops.groupnorm", "emcid_torch.ops.layernorm",
             "emcid_torch.engine.fim", "emcid_torch.engine.compute_z_variants",
@@ -62,6 +62,11 @@ def test_port_modules_import_without_jax():
             # the UNet edit modes
             "emcid_torch.engine.cross_attn", "emcid_torch.engine.unet_edit",
             "emcid_torch.engine.unet_stats",
+            # the preservation and single-concept benchmarks
+            "emcid_torch.stats.extras", "emcid_torch.models.inception",
+            "emcid_torch.models.lpips", "emcid_torch.evals.coco_eval",
+            "emcid_torch.evals.artists_eval", "emcid_torch.evals.i2p_eval",
+            "emcid_torch.evals.refact_benchmark",
             } <= set(result["modules"])
     assert result["forbidden"] == []
 
@@ -74,3 +79,56 @@ def test_source_imports_no_jax(source):
     names JAX or the JAX package."""
     roots = set(_imported_roots(REPO / source))
     assert not roots & set(FORBIDDEN), (source, roots & set(FORBIDDEN))
+
+
+# the package-level re-exports added with the preservation and
+# single-concept benchmarks and the rest of the JAX engine surface:
+# package -> {name: "defining module:name"}
+REEXPORTS = {
+    "emcid_torch.ops": {
+        n: f"emcid_torch.ops.solve:{n}"
+        for n in ("solve_adj_k", "upd_matrix_match_shape")},
+    "emcid_torch.engine": {
+        "compute_ks_text_encoder": "emcid_torch.engine.extract:"
+                                   "compute_ks_text_encoder",
+        "compute_z_text_encoder_batch": "emcid_torch.engine.compute_z:"
+                                        "compute_z_text_encoder_batch",
+        "apply_emcid_to_text_encoder": "emcid_torch.engine.emcid:"
+                                       "apply_emcid_to_text_encoder",
+        "resolve_covariances": "emcid_torch.engine.editor:"
+                               "resolve_covariances",
+        "get_cov_text_encoder": "emcid_torch.engine.layer_stats:"
+                                "get_cov_text_encoder"},
+    "emcid_torch.stats": {
+        n: f"emcid_torch.stats.extras:{n}"
+        for n in ("Quantile", "TopK", "Bincount", "History", "IoU")},
+    "emcid_torch.models": {
+        **{n: f"emcid_torch.models.inception:{n}" for n in (
+            "InceptionV3Features", "fid_features", "inception_from_torch",
+            "inception_from_jax", "load_inception", "make_fid_extractor")},
+        **{n: f"emcid_torch.models.lpips:{n}" for n in (
+            "LPIPS", "LPIPSScorer", "lpips_from_torch", "lpips_from_jax")}},
+    "emcid_torch.evals": {
+        "refact_emcid_test": "emcid_torch.evals.refact_benchmark:emcid_test",
+        "refact_eval_all": "emcid_torch.evals.refact_benchmark:eval_all",
+        **{n: f"emcid_torch.evals.coco_eval:{n}" for n in (
+            "coco_summary_key", "generate_coco", "cal_lpips_coco",
+            "cal_clip_score_coco", "write_coco_summary")},
+        **{n: f"emcid_torch.evals.artists_eval:{n}" for n in (
+            "generate_artist_images", "eval_artists")},
+        **{n: f"emcid_torch.evals.i2p_eval:{n}" for n in (
+            "generate_i2p_imgs", "detect_nude_classes",
+            "i2p_nudity_summary")}},
+}
+
+
+def test_package_reexports():
+    """Each package-level name is the object its module defines."""
+    import importlib
+
+    for package, names in REEXPORTS.items():
+        pkg = importlib.import_module(package)
+        for name, target in names.items():
+            module, attr = target.split(":")
+            assert getattr(pkg, name) is getattr(
+                importlib.import_module(module), attr), (package, name)

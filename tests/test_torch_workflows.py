@@ -1,9 +1,12 @@
-"""PyTorch port, ``emcid_torch.cli.workflows``: the ``aice``, ``mend`` and
-``debias`` subcommands with ``--tiny --platform cpu`` on a synthetic
-request tree write their outputs (the summary JSONs; the debias edits'
-factors and ratios); without ``--platform cpu`` on a host with no card
-each raises; the JAX CLI's other subcommands stay in the parser and raise
-``NotImplementedError`` naming their ROADMAP item."""
+"""PyTorch port, ``emcid_torch.cli.workflows``: the ``aice``, ``mend``,
+``debias``, ``road``, ``timed``, ``artists``, ``coco``, ``i2p`` and
+``layer_stats`` subcommands with ``--tiny --platform cpu`` on a synthetic
+request tree write their outputs under the JAX CLI's paths (the summary
+JSONs; the debias edits' factors and ratios; the benchmark images; the
+FID; the nudity counts; the covariance caches); without ``--platform
+cpu`` on a host with no card each raises; the JAX CLI's other subcommands
+stay in the parser and raise ``NotImplementedError`` naming their ROADMAP
+item."""
 
 import csv
 import json
@@ -15,7 +18,7 @@ import torch
 from emcid_torch.cli import workflows
 from emcid_torch.evals.scorers import make_vit_scorer
 
-from torch_parity import one_torch_thread  # noqa: F401
+from torch_parity import one_torch_thread, write_eval_tree  # noqa: F401
 
 HP = "tiny-hp"
 
@@ -80,6 +83,7 @@ def tree(tmp_path_factory):
     (root / "hparams").mkdir()
     (root / "hparams" / f"{HP}.json").write_text(
         hp.to_json(root / "hparams").read_text())
+    write_eval_tree(root / "data")
     return root
 
 
@@ -145,7 +149,8 @@ def test_debias_uce_tiny_cpu(tree, tmp_path, capsys):
     assert "init ratios:" in out and "final ratios:" in out
 
 
-@pytest.mark.parametrize("cmd", ["aice", "mend", "debias"])
+@pytest.mark.parametrize("cmd", ["aice", "mend", "debias", "road", "timed",
+                                 "artists", "coco", "i2p", "layer_stats"])
 def test_default_platform_wants_the_card(tree, tmp_path, cmd):
     """``--tiny`` does not switch to the CPU: the default platform is the
     card, and with none present the subcommand raises."""
@@ -208,3 +213,122 @@ def test_scorer_checkpoints_load(tmp_path, monkeypatch):
     texts = ["a photo of a cat", "dog"]
     torch.testing.assert_close(clip.logits_per_image(imgs, texts),
                                ref.logits_per_image(imgs, texts))
+
+
+@pytest.mark.parametrize("dataset,method", [("timed", "emcid"),
+                                            ("road", "contrast")])
+def test_refact_tiny_cpu_writes_images(tree, tmp_path, dataset, method):
+    """``road``/``timed``: one request edited (EMCID, or the CLIP-joint
+    contrast edit), its 11 images at the JAX CLI's paths, then scored by
+    ``eval_all`` with a tiny CLIP scorer: a finite F1 in the JSON."""
+    from types import SimpleNamespace
+
+    from emcid_torch.evals.refact_benchmark import eval_all
+    from emcid_torch.models.loader import build_tiny_pipeline
+
+    reqs = workflows.main(_argv(tree, tmp_path, dataset, "--num_requests",
+                                "1", "--method", method))
+    assert len(reqs) == 1
+    row = reqs[0]["row"]
+    key = "old" if dataset == "timed" else "prompt"
+    out = (tmp_path / "results" / "images" / dataset / f"{HP}_w100"
+           / "emcid" / f"source_{row[key]}_dest_{row['new']}")
+    assert len(list(out.rglob("seed_0.png"))) == 11
+    scorer = workflows._clip_scorer(
+        SimpleNamespace(clip_checkpoint=None, tiny=True),
+        build_tiny_pipeline(device="cpu"))
+    f1 = eval_all(scorer, reqs, dataset, HP, 100,
+                  results_dir=str(tmp_path / "results"))
+    record = json.loads((tmp_path / "results" / "emcid" / HP
+                         / f"{dataset}_results_emcid.json").read_text())
+    assert record["weight100"]["f1_score"] == f1 and np.isfinite(f1)
+
+
+def test_artists_tiny_cpu_writes_pre_and_post(tree, tmp_path):
+    """``artists --num_artists 2``: the 4 eval prompts rendered before and
+    after the erase edit, named ``{case}_{seed}.png``."""
+    out = workflows.main(_argv(tree, tmp_path, "artists", "--num_artists",
+                               "2"))
+    assert out == tmp_path / "results" / "images" / "artists" / f"{HP}_n2"
+    for phase in ("pre", "post"):
+        assert sorted(p.name for p in (out / phase).glob("*.png")) == [
+            "0_100.png", "1_101.png", "2_102.png", "3_103.png"]
+    assert list((tmp_path / "cache" / HP / "artists").glob("*.npz"))
+
+
+def test_coco_tiny_cpu_with_fid(tree, tmp_path, monkeypatch):
+    """``coco --tag pre --fid_ref_dir``: 3 images at ``{case}.png`` and FID
+    against the reference folder through ``make_fid_extractor`` (stubbed
+    here with 8-d colour features: the 2048-d square roots are checked on
+    the card)."""
+    from PIL import Image
+
+    import emcid_torch.models.inception as tinc
+
+    ref = tmp_path / "ref"
+    ref.mkdir()
+    for i in range(3):
+        Image.fromarray(np.full((16, 16, 3), 40 * i, np.uint8)).save(
+            ref / f"{i}.png")
+    made = []
+
+    def extractor(weights, batch_size, device):
+        made.append((weights, batch_size, str(device)))
+        return lambda imgs: np.asarray(imgs, np.float64).reshape(
+            len(imgs), -1)[:, :8]
+
+    monkeypatch.setattr(tinc, "make_fid_extractor", extractor)
+    fid = workflows.main(_argv(tree, tmp_path, "coco", "--tag", "pre",
+                               "--batch_size", "2", "--fid_ref_dir",
+                               str(ref)))
+    out = tmp_path / "results" / "images" / "coco" / "pre"
+    assert sorted(p.name for p in out.glob("*.png")) == [
+        "0.png", "1.png", "2.png"]
+    assert made == [(None, 2, "cpu")] and np.isfinite(fid)
+    assert workflows.main(_argv(tree, tmp_path, "coco", "--tag",
+                                "pre")) is None
+
+
+def test_i2p_tiny_cpu_with_the_fake_detector(tree, tmp_path, capsys):
+    """``i2p --detector_cmd '<python> scripts/fake_nudenet.py'``: 4 images,
+    the detector's CSV and the count summary with the reference keys;
+    without a detector the images only, and a hint."""
+    import sys
+    from pathlib import Path
+
+    from emcid_torch.evals.scorers import NUDENET_EXPOSED_LABELS
+
+    fake = Path(__file__).resolve().parent.parent / "scripts" / \
+        "fake_nudenet.py"
+    cnt = workflows.main(_argv(tree, tmp_path, "i2p", "--num_requests", "4",
+                               "--tag", "t", "--detector_cmd",
+                               f"{sys.executable} {fake}"))
+    base = tmp_path / "results" / "images" / "i2p"
+    assert len(list((base / "t").glob("*.png"))) == 4
+    assert (base / "t_nudity.csv").exists()
+    saved = json.loads((base / "i2p_nudity_t_cnt.json").read_text())
+    assert set(saved) == {*NUDENET_EXPOSED_LABELS, "total"}
+    assert cnt["total_images"] == 4 and saved["total"] == cnt["total"]
+    assert workflows.main(_argv(tree, tmp_path, "i2p", "--num_requests",
+                                "2", "--tag", "u")) is None
+    assert "--detector_cmd" in capsys.readouterr().out
+
+
+def test_layer_stats_tiny_cpu_caches(tree, tmp_path):
+    """``layer_stats --layers 2-3 --sample_size 20``: one covariance cache
+    per layer at the codec's path; a second call reads them."""
+    from emcid_torch.engine.layer_stats import stats_filename
+
+    argv = _argv(tree, tmp_path, "layer_stats", "--layers", "2-3",
+                 "--sample_size", "20")
+    timings = {}
+    stats = workflows.main(argv, timings=timings)
+    names = [f"text_model.encoder.layers.{i}.mlp.fc2" for i in (2, 3)]
+    assert sorted(stats) == names and {"load", *names} <= set(timings)
+    for n in names:
+        assert stats_filename(tmp_path / "stats", "text_encoder",
+                              "ccs_filtered", n, sample_size=20).exists()
+        assert stats[n].mom2.count > 0
+    again = workflows.main(argv)
+    for n in names:
+        assert torch.equal(again[n].mom2.moment(), stats[n].mom2.moment())

@@ -81,3 +81,31 @@ def port_sdxl_components(comps, dtype=torch.float32):
         vae_params=npt(comps.vae_params),
         scaling_factor=comps.scaling_factor, vae_scale=comps.vae_scale,
         device="cpu", dtype=dtype)
+
+
+# the tiny tokenizers' words for the synthetic benchmark files
+EVAL_VOCAB = {
+    "coco": ["a photo of a cat", "a dog w1", "an image of w2"],
+    "artists": [("w3", "erased"), ("w5", "erased"), ("w7", "holdout"),
+                ("w8", "holdout")],
+    "i2p": [f"w{10 + i}" for i in range(4)],
+    "timed": [("cat", "dog"), ("w12", "w13")],
+    "road": [("w14", "w15"), ("w16", "w17")],
+    "others": [f"w{20 + i}" for i in range(1, 6)],
+    "subjects": ("cat", "dog"),
+}
+
+
+def write_eval_tree(data):
+    """``chip_smoke.write_benchmark_tree`` in the tiny tokenizers'
+    vocabulary: 3 COCO rows, 2 erased artists (w3, w5) with 2 erased and 2
+    held-out eval prompts, 4 I2P rows at two guidance scales, and 2 TIMED
+    and 2 RoAD rows.  Returns ``data``."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke.write_benchmark_tree(Path(data), EVAL_VOCAB, seed=0)
