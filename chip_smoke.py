@@ -98,6 +98,24 @@ Phases, each printing one JSON line:
    ``workflows i2p`` with ``scripts/fake_nudenet.py`` as the detector;
    per run the launches of every kernel and route, seconds, images per
    second at 512 px and peak memory;
+7c. the layer-localisation study and the experiments on the same folder
+   (``trace_path``), with the eval path's ViT-B/16, CLIP ViT-L/14 and
+   ICEB tree, the preservation path's I2P rows and a random full-width
+   BLIP-base ITM folder: (a) causal tracing (``collect_embedding_std``,
+   ``trace_important_states`` over all 12 layers and every real token of
+   one prompt, DDIM-10 with CFG at 512 px, scored by the ViT;
+   ``save_trace_images`` read back through the folder sweep's codec and
+   scored by CLIP and BLIP ITM; BLIP in f32 against float64; a row
+   restored at every token of the last layer equal to the clean row),
+   (b) ``finetune_text_encoder`` (2 concepts x 3 prompts, 10 steps, 384
+   px latents, both norm knobs at 1: K2/K3 on ``mma`` only, K5b and K6b;
+   only the edit layers' fc2 changed, UNet and VAE bitwise unchanged),
+   (c) ``workflows sequential`` (3 rounds, 2 samples), (d) the mixed ICEB
+   + I2P edit (EMCID then UCE; its UCE solves against float64) and the
+   same call again from its summary, (e) ``workflows validate --f32``
+   against self-goldens and a perturbed UNet that must fail; per run the
+   launches of every kernel and route, seconds, images per second at 512
+   px and peak memory;
 8. SDXL at full width (CLIP-L, OpenCLIP bigG, the 2.6B text_time UNet and
    the SDXL VAE, 3.47B parameters, random bf16 weights from seed 0) at
    1024 px: the UNet with attention through the kernels against the plain
@@ -119,9 +137,10 @@ Phases, each printing one JSON line:
 
 Then the kernel table line (launches from the CLI path, from the
 evaluation path's mend run, from the SDXL path, from the UNet edit
-path's runs (a) and (c), and from the preservation path's COCO run
-(``preservation_launches``) and TIMED run (``refact_launches``)), the
-card's name
+path's runs (a) and (c), from the preservation path's COCO run
+(``preservation_launches``) and TIMED run (``refact_launches``), and from
+the trace path's sweep (``trace_launches``) and finetuning run
+(``finetune_launches``)), the card's name
 and power limit, and, last, the device line the harness reads.
 Exits non-zero, and prints no result, when there is no CUDA device, when
 the port cannot be imported, or when any phase fails.
@@ -131,6 +150,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import json
 import os
 import shutil
@@ -1859,6 +1879,56 @@ def spy(module, name, calls, keep=True):
         setattr(module, name, real)
 
 
+def cli_entry(argv) -> str:
+    """The workflows command line of ``argv`` without its absolute paths."""
+    return "python -m emcid_torch.cli.workflows " + " ".join(
+        a for a in argv if not a.startswith("/"))
+
+
+@contextlib.contextmanager
+def measured(torch, phase, label, entry, knobs, gen_spies, time_spies=()):
+    """One run of a phase under ``knobs``: yields its row and fills in its
+    kernel launches per route, seconds, peak memory and generated images.
+    ``gen_spies`` are the (module, name) calls that generate (their image
+    counts and seconds add up), ``time_spies`` calls whose seconds add to
+    the generation time only."""
+    from emcid_torch.ops import _build
+
+    row = dict(phase=phase, run=label, entry=entry, knobs=knobs)
+    gens, timed = [], []
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(environ(**knobs))
+        for module, name in gen_spies:
+            stack.enter_context(spy(module, name, gens, keep=False))
+        for module, name in time_spies:
+            stack.enter_context(spy(module, name, timed, keep=False))
+        _build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        yield row
+        torch.cuda.synchronize()
+        row["seconds"] = time.time() - t0
+        row["launches"] = dict(_build.LAUNCHES)
+        row["routes"] = copy.deepcopy(_build.ROUTES)
+    n = sum(g["n"] for g in gens)
+    gen_s = sum(g["seconds"] for g in gens + timed)
+    row.update(generated_images=n, generation_s=gen_s,
+               images_per_s_512=n / gen_s if n else None,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def finish_run(rows, failures, row, checks):
+    """Close a run's row: its checks, ``ok`` when every ``*_ok`` holds,
+    printed and kept; a failed run is added to ``failures``."""
+    row.update(checks)
+    row["ok"] = all(v for k, v in checks.items() if k.endswith("_ok"))
+    emit(row)
+    rows.append(row)
+    if not row["ok"]:
+        failures.append(f"{row['phase'].replace('_', ' ')} {row['run']}: "
+                        f"{row}")
+
+
 def changed_params(torch, before_module, after_module):
     before = dict(before_module.named_parameters())
     return {k for k, v in after_module.named_parameters()
@@ -1967,9 +2037,7 @@ def eval_path(torch, tmp: Path, ckpt, failures):
             timings["scored_images"] = sum(c["n"] for c in cls)
         n_img = timings.get("generated_images", 0)
         row = dict(
-            phase="eval_path", run=label,
-            entry="python -m emcid_torch.cli.workflows " + " ".join(
-                a for a in argv if not a.startswith("/")),
+            phase="eval_path", run=label, entry=cli_entry(argv),
             knobs=knobs, seconds=seconds,
             **{f"{k}_s" if not k.endswith("images") else k: v
                for k, v in timings.items()},
@@ -1982,13 +2050,7 @@ def eval_path(torch, tmp: Path, ckpt, failures):
             launches=launches, routes=routes)
         return row, out, calls
 
-    def finish(row, checks):
-        row.update(checks)
-        row["ok"] = all(v for k, v in checks.items() if k.endswith("_ok"))
-        emit(row)
-        rows.append(row)
-        if not row["ok"]:
-            failures.append(f"eval path {row['run']}: {row}")
+    finish = functools.partial(finish_run, rows, failures)
 
     # (a) aice, knobs off, and the same call again
     aice = ["aice", *common, "--vit_checkpoint", str(vit_path),
@@ -2382,7 +2444,6 @@ def preservation_path(torch, tmp: Path, ckpt, main_stats, failures):
         resize_bilinear,
     )
     from emcid_torch.models.lpips import LPIPS_SIZE, LPIPSScorer
-    from emcid_torch.ops import _build
     from emcid_torch.runtime import precise_matmuls
     from emcid_torch.stats import CombinedStat, SecondMoment
 
@@ -2402,45 +2463,18 @@ def preservation_path(torch, tmp: Path, ckpt, main_stats, failures):
     off, on = dict.fromkeys(KNOBS), dict.fromkeys(KNOBS, "1")
     rows = []
 
-    @contextlib.contextmanager
-    def measured(label, argv, knobs):
-        """Count launches, seconds, eval images and peak memory of one
-        run (the CLI call and the library calls after it)."""
-        row = dict(phase="preservation_path", run=label,
-                   entry="python -m emcid_torch.cli.workflows " + " ".join(
-                       a for a in argv if not a.startswith("/")),
-                   knobs=knobs)
-        gens = []
-        with contextlib.ExitStack() as stack:
-            stack.enter_context(environ(**knobs))
-            for m in (coco_mod, artists_mod, i2p_mod, refact_mod):
-                stack.enter_context(spy(m, "generate", gens, keep=False))
-            _build.reset_launches()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.time()
-            yield row
-            torch.cuda.synchronize()
-            row["seconds"] = time.time() - t0
-            row["launches"] = dict(_build.LAUNCHES)
-            row["routes"] = copy.deepcopy(_build.ROUTES)
-        n, gen_s = sum(g["n"] for g in gens), sum(g["seconds"] for g in gens)
-        row.update(generated_images=n, generation_s=gen_s,
-                   images_per_s_512=n / gen_s if n else None,
-                   peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
-
-    def finish(row, checks):
-        row.update(checks)
-        row["ok"] = all(v for k, v in checks.items() if k.endswith("_ok"))
-        emit(row)
-        rows.append(row)
-        if not row["ok"]:
-            failures.append(f"preservation path {row['run']}: {row}")
+    # the CLI call and the library calls after it count in a run
+    run = functools.partial(
+        measured, torch, "preservation_path",
+        gen_spies=[(m, "generate") for m in (coco_mod, artists_mod, i2p_mod,
+                                             refact_mod)])
+    finish = functools.partial(finish_run, rows, failures)
 
     # (a) the covariance pre-cache over all 12 layers
     argv = ["layer_stats", *common, "--layers", "0-11", "--sample_size",
             "2000", "--stats_dir", str(tmp / "stats_a")]
     timings = {}
-    with measured("a_layer_stats", argv, off) as row:
+    with run("a_layer_stats", cli_entry(argv), off) as row:
         stats = workflows.main(argv, timings=timings)
     moments = {n: s.mom2.moment().double() for n, s in stats.items()}
     sym = max(float((m - m.T).abs().max() / m.abs().max())
@@ -2472,7 +2506,7 @@ def preservation_path(torch, tmp: Path, ckpt, main_stats, failures):
     argv = ["coco", *common, "--tag", "pre", "--sub", str(PRES_COCO_ROWS),
             "--batch_size", "8", "--fid_ref_dir", str(ref_dir)]
     coco_calls, edits = [], []
-    with measured("b_coco", argv, on) as row:
+    with run("b_coco", cli_entry(argv), on) as row:
         with spy(coco_mod, "generate_coco", coco_calls):
             fid = workflows.main(argv)
         (comps, coco_rows, pre_dir), gen_kw, _ = coco_calls[0]["call"]
@@ -2545,7 +2579,7 @@ def preservation_path(torch, tmp: Path, ckpt, main_stats, failures):
     argv = ["artists", *common, "--num_artists", "2",
             "--stats_dir", str(main_stats), "--cache_dir", str(tmp / "z_c")]
     calls = []
-    with measured("c_artists", argv, off) as row:
+    with run("c_artists", cli_entry(argv), off) as row:
         with spy(editor_mod, "apply_emcid", calls):
             out = workflows.main(argv)
         art_rows = load_artist_eval_prompts(2, data_dir=data)
@@ -2581,7 +2615,7 @@ def preservation_path(torch, tmp: Path, ckpt, main_stats, failures):
                 "--stats_dir", str(main_stats),
                 "--cache_dir", str(tmp / f"z_{dataset}"), *extra]
         loops = []
-        with measured(label, argv, off) as row:
+        with run(label, cli_entry(argv), off) as row:
             with spy(refact_mod, "emcid_test", loops):
                 reqs = workflows.main(argv)
             f1 = eval_all(clip, reqs, dataset, name, hp.mom2_update_weight,
@@ -2617,7 +2651,7 @@ def preservation_path(torch, tmp: Path, ckpt, main_stats, failures):
     # (e) I2P with the stand-in detector in its own process
     argv = ["i2p", *common, "--num_requests", "4", "--detector_cmd",
             f"{sys.executable} {REPO / 'scripts' / 'fake_nudenet.py'}"]
-    with measured("e_i2p", argv, off) as row:
+    with run("e_i2p", cli_entry(argv), off) as row:
         cnt = workflows.main(argv)
     base = results / "images" / "i2p"
     saved = json.loads((base / "i2p_nudity_post_edit_cnt.json").read_text())
@@ -2630,6 +2664,395 @@ def preservation_path(torch, tmp: Path, ckpt, main_stats, failures):
     del lpips, clip
     torch.cuda.empty_cache()
     return coco_row, refact_rows["timed"]
+
+
+# ---------------------------------------------------------------------------
+# the layer-localisation study and the experiments that edit the same
+# pipeline: causal tracing scored by the ViT, CLIP and BLIP ITM, the
+# finetuning baseline, sequential editing, the mixed ICEB + I2P edit and
+# the checkpoint validator
+# ---------------------------------------------------------------------------
+
+TRACE_PROMPT, TRACE_SUBJECT, TRACE_CLASS = "a photo of a w10", "w10", 0
+# the layers at which save_trace_images restores the subject's first token
+TRACE_LAYERS = [7, 11]
+BLIP_TEXT = "a photo of a w10"
+# BLIP ITM in f32 against a float64 copy on the card
+BLIP_F64_TOL = 1e-5
+FINETUNE_REQUESTS = REQUESTS[:2]
+MIXED_I2P_ROWS = 4
+
+
+def write_blip(torch, tmp: Path, words):
+    """A random full-width BLIP-base ITM folder (ViT-B/16 at 384 px, BERT-base
+    with cross-attention, vocab 30524; seed 4): ``config.json``, the state
+    dict saved with ``torch.save`` and a synthetic ``vocab.txt`` holding
+    the special tokens and ``words``.  Returns (folder, GiB written)."""
+    import dataclasses
+
+    from emcid_torch.models.blip import (
+        BlipTextConfig, BlipVisionConfig, build_random_blip)
+    from emcid_torch.text.wordpiece import write_vocab
+
+    vc, tc = BlipVisionConfig(), BlipTextConfig()
+    folder = tmp / "blip"
+    write_vocab(folder, words, vocab_size=tc.vocab_size)
+    model = build_random_blip(vc, tc, seed=4, device="cuda")
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+               folder / "pytorch_model.bin")
+    (folder / "config.json").write_text(json.dumps(
+        {"text_config": dataclasses.asdict(tc),
+         "vision_config": dataclasses.asdict(vc)}))
+    del model
+    torch.cuda.empty_cache()
+    return folder, sum(f.stat().st_size for f in folder.iterdir()) / 2 ** 30
+
+
+def trace_name(item) -> str:
+    """The file name the causal-trace codec's fields stand for."""
+    head = f"{item.class_name}_{item.idx}_{item.kind or 'x'}"
+    if item.is_clean:
+        return f"{head}_clean.png"
+    if item.is_corrupted:
+        return f"{head}_corrupt.png"
+    if item.restore_type == "window":
+        return (f"{head}_s{item.start_layer}_w{item.restore_window}"
+                f"_restore_{item.token_to_restore}.png")
+    return f"{head}_l{item.restore_layer}_restore_{item.token_to_restore}.png"
+
+
+def blip_f64_check(torch, scorer, images, texts) -> float:
+    """The BLIP ITM scorer (f32 on the card, exact f32) against a float64
+    copy of the same model on the card: max |p32 - p64| / max |p64|."""
+    import numpy as np
+
+    from emcid_torch.models.vision import (
+        CLIP_IMAGE_MEAN, CLIP_IMAGE_STD, preprocess_for_model)
+
+    p32 = scorer.itm_score(images, texts)
+    m64 = copy.deepcopy(scorer.model).double()
+    px = preprocess_for_model(images, m64.vision_config.image_size,
+                              CLIP_IMAGE_MEAN, CLIP_IMAGE_STD,
+                              device="cuda").double()
+    enc = scorer.tokenizer([scorer.prefix + t for t in texts], padding=True,
+                           truncation=True, max_length=512)
+    ids = torch.as_tensor(enc["input_ids"], device="cuda")
+    mask = torch.as_tensor(enc["attention_mask"], device="cuda").double()
+    with torch.no_grad():
+        p64 = torch.softmax(m64(px, ids, mask), -1)[:, 1].cpu().numpy()
+    del m64
+    torch.cuda.empty_cache()
+    return float(np.abs(p32 - p64).max() / np.abs(p64).max())
+
+
+def trace_path(torch, tmp: Path, ckpt, main_stats, failures):
+    """The layer-localisation study and the experiments on the same
+    pipeline, on the folder of ``write_checkpoint`` (bf16), with the
+    evaluation path's random ViT-B/16, CLIP ViT-L/14 and ICEB tree, the
+    preservation path's I2P rows and a random full-width BLIP-base ITM:
+
+    (a) ``collect_embedding_std`` over the ICEB subjects, then
+        ``trace_important_states`` on one prompt over all 12 layers and all
+        9 real tokens (window 1, DDIM-10 with CFG 7.5 at 512 px, scored by
+        the ViT's class score), ``save_trace_images`` restoring the
+        subject's first token at 2 layers, read back by
+        ``find_trace_images`` and ``extract_all_images_clip``, and every
+        image scored by BLIP ITM;
+    (b) ``finetune_text_encoder`` on 2 requests x 3 prompts, 10 steps, on
+        384-px DPM++-10 training latents, both norm knobs at 1;
+    (c) ``workflows sequential --sample_num 2`` (3 rounds);
+    (d) ``emcid_test_sd_imgnet_and_i2p`` (2 edits, 4 I2P rows), then the
+        same call again;
+    (e) ``workflows validate --f32`` against self-goldens, then the same
+        goldens against a copy with one perturbed UNet weight.
+
+    One JSON row per run with its kernel launches per route, seconds,
+    images per second at 512 px, peak memory and checks.  Returns the rows
+    of (a) and (b)."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    from PIL import Image
+
+    import emcid_torch.cli.validate as validate_mod
+    import emcid_torch.engine.uce as uce_mod
+    import emcid_torch.evals.i2p_eval as i2p_mod
+    import emcid_torch.evals.iceb as iceb_mod
+    import emcid_torch.experiments.sequential as seq_mod
+    import emcid_torch.interp.causal_trace as ct
+    from emcid_torch.cli import workflows
+    from emcid_torch.dsets.global_concepts import load_i2p_prompts
+    from emcid_torch.engine.training_images import (
+        training_latents_for_requests)
+    from emcid_torch.evals.blip import load_native_blip_scorer
+    from emcid_torch.evals.folder_sweep import (
+        extract_all_images_clip, find_trace_images)
+    from emcid_torch.evals.mixed_safety import emcid_test_sd_imgnet_and_i2p
+    from emcid_torch.evals.scorers import make_vit_scorer
+    from emcid_torch.evals.summary import summary_key, summary_path
+    from emcid_torch.experiments.finetune import finetune_text_encoder
+    from emcid_torch.models.loader import load_pipeline
+    from emcid_torch.text.token_range import find_token_range
+
+    ckpt_dir = ckpt[0]
+    eval_dir, pres_dir = tmp / "eval", tmp / "pres"
+    tmp = tmp / "trace"
+    tmp.mkdir()
+    hp = bench_hparams(10)
+    (tmp / "hparams").mkdir()
+    name = hp.to_json(tmp / "hparams").stem
+    fc2 = {f"text_model.encoder.layers.{i}.mlp.fc2.weight" for i in hp.layers}
+    off, on = dict.fromkeys(KNOBS), dict.fromkeys(KNOBS, "1")
+    rows = []
+
+    # the traces sample and decode through their own calls
+    run = functools.partial(
+        measured, torch, "trace_path",
+        gen_spies=[(m, "generate") for m in (iceb_mod, i2p_mod, seq_mod)]
+        + [(ct, "denoise")], time_spies=[(ct, "decode_latents")])
+    finish = functools.partial(finish_run, rows, failures)
+
+    t0 = time.time()
+    comps = load_pipeline(ckpt_dir, device="cuda")
+    blip_dir, blip_gb = write_blip(torch, tmp, BLIP_TEXT.split()
+                                   + ["depicts"])
+    vit = make_vit_scorer(torch_state_dict=torch.load(
+        eval_dir / "vit_b16.pt", map_location="cpu", weights_only=True),
+        device="cuda")
+    emit(dict(phase="trace_path_setup", load_s=time.time() - t0,
+              blip_checkpoint_gb=blip_gb))
+
+    # (a) the trace: embedding std, the (token x layer) sweep, saved cells
+    # read back and scored by CLIP and BLIP ITM
+    with run("a_trace", "emcid_torch.interp.causal_trace", off) as row:
+        subjects = [src for src, *_ in ICEB_EDIT]
+        std = ct.collect_embedding_std(comps, subjects)
+        noise = 3.0 * std
+        score_fn = lambda img: float(vit.probs(img[None])[0, TRACE_CLASS])
+        t1 = time.time()
+        heat = ct.trace_important_states(
+            comps, TRACE_PROMPT, TRACE_SUBJECT, noise, window=1, seed=0,
+            score_fn=score_fn)
+        torch.cuda.synchronize()
+        row["sweep_s"] = time.time() - t1
+        tok = comps.tokenizer
+        ids = tok([TRACE_PROMPT])["input_ids"][0]
+        first = find_token_range(tok, ids[:int(heat.shape[0])],
+                                 TRACE_SUBJECT)[0]
+        ct.save_trace_images(comps, TRACE_PROMPT, TRACE_SUBJECT, noise,
+                             tmp / "images", "w10", 0, layers=TRACE_LAYERS,
+                             tokens=[first])
+        clip = workflows._clip_scorer(SimpleNamespace(
+            clip_checkpoint=str(eval_dir / "clip_l14.pt"), tiny=False), comps)
+        items = extract_all_images_clip(tmp / "images", clip,
+                                        lambda it: TRACE_PROMPT,
+                                        file_path=tmp / "clip_scores.json")
+        blip = load_native_blip_scorer(blip_dir, device="cuda")
+        images = [np.asarray(Image.open(i.image_path).convert("RGB"))
+                  for i in items]
+        t1 = time.time()
+        blip_scores = blip.itm_score(np.stack(images),
+                                     [BLIP_TEXT] * len(images))
+        row["blip_s_per_image"] = (time.time() - t1) / len(images)
+    S = comps.tokenizer.model_max_length
+    n_layers = comps.text_encoder.config.num_hidden_layers
+    ctx, _ = ct.corrupted_embeddings(
+        comps, TRACE_PROMPT, TRACE_SUBJECT, noise,
+        patch_spec={n_layers - 1: np.ones(S, np.float32)})
+    patched_diff = float((ctx[1].float() - ctx[0].float()).abs().max())
+    names = sorted(Path(i.image_path).name for i in items)
+    label = tok.decode([int(ids[first])]).replace(" ", "")
+    want = sorted(["w10_0_x_clean.png", "w10_0_x_corrupt.png"] + [
+        f"w10_0_x_l{l}_restore_{label}.png" for l in TRACE_LAYERS])
+    t1 = time.time()
+    blip_rel = blip_f64_check(torch, blip, np.stack(images),
+                              [BLIP_TEXT] * len(images))
+    n_real = int(comps.tokenizer([TRACE_PROMPT])["attention_mask"][0].sum())
+    launches = row["launches"]
+    row.update(noise_scale=noise, heatmap=heat.tolist(),
+               clip_scores=[i.matching_score for i in items],
+               blip_scores=blip_scores.tolist())
+    finish(row, dict(
+        heatmap_shape=list(heat.shape),
+        heatmap_ok=heat.shape == (n_real, n_layers)
+        and bool(np.isfinite(heat).all()),
+        patched_row_max_abs_diff=patched_diff,
+        patched_row_equals_clean_ok=patched_diff == 0.0,
+        trace_images=names, trace_images_ok=names == want,
+        codec_roundtrip_ok=all(trace_name(i) == Path(i.image_path).name
+                               for i in find_trace_images(tmp / "images")),
+        scores_finite_ok=bool(np.isfinite(blip_scores).all()
+                              and np.isfinite([i.matching_score
+                                               for i in items]).all()),
+        images_ok=uint8_512(images),
+        blip_f32_vs_f64_rel=blip_rel, blip_f64_tolerance=BLIP_F64_TOL,
+        blip_f64_ok=blip_rel <= BLIP_F64_TOL, blip_f64_check_s=(
+            time.time() - t1),
+        flash_and_short_kv_ok=launches["K1 flash_v2_fwd"] > 0
+        and launches["K4 short_kv_fwd"] > 0,
+        bf16_routes_ok=routes_ok(row["routes"], {
+            k: BF16_ROUTES[k] for k in ("K1 flash_v2_fwd",
+                                        "K4 short_kv_fwd")})))
+    trace_row = row
+    del clip, blip
+    torch.cuda.empty_cache()
+
+    # (b) the finetuning baseline on the 384-px training latents, both
+    # norm knobs at 1
+    before_unet = {k: v.clone() for k, v in comps.unet.state_dict().items()}
+    before_vae = {k: v.clone() for k, v in comps.vae.state_dict().items()}
+    with environ(**off):
+        t0 = time.time()
+        mean, logvar = training_latents_for_requests(
+            comps, FINETUNE_REQUESTS, hp, height=384, width=384,
+            num_inference_steps=10, sampler="dpm++")
+        torch.cuda.synchronize()
+        latents_s = time.time() - t0
+    steps = 10
+    with run("b_finetune",
+             "emcid_torch.experiments.finetune.finetune_text_encoder",
+             on) as row:
+        edited, losses = finetune_text_encoder(
+            comps, FINETUNE_REQUESTS, hp, mean, logvar, steps=steps,
+            seed=0, verbose=False)
+    changed = changed_params(torch, comps.text_encoder, edited.text_encoder)
+    routes = row["routes"]
+    row.update(requests=len(FINETUNE_REQUESTS), prompts=3, steps=steps,
+               train_res=384, training_latents_s=latents_s,
+               s_per_step=row["seconds"] / steps, losses=losses)
+    finish(row, dict(
+        loss_finite_ok=bool(np.isfinite(losses).all()),
+        changed_params=sorted(changed),
+        only_fc2_of_edit_layers_ok=changed == fc2,
+        unet_unchanged_ok=all(torch.equal(v, before_unet[k]) for k, v in
+                              edited.unet.state_dict().items()),
+        vae_unchanged_ok=all(torch.equal(v, before_vae[k]) for k, v in
+                             edited.vae.state_dict().items()),
+        bwd_mma_only_ok=all(
+            routes[k]["mma"] > 0 and routes[k]["fma"] == 0
+            for k in ("K2 flash_v2_dq", "K3 flash_v2_dkv")),
+        norm_bwd_ok=row["launches"]["K5b groupnorm_bwd"] > 0
+        and row["launches"]["K6b layernorm_bwd"] > 0))
+    finetune_row = row
+    del edited, before_unet, before_vae, mean, logvar
+    torch.cuda.empty_cache()
+
+    # (c) workflows sequential: 3 rounds, 2 samples of the val prompt
+    # before and after each
+    results = tmp / "results"
+    argv = ["sequential", "--checkpoint_dir", str(ckpt_dir), "--hparam", name,
+            "--hparams_dir", str(tmp / "hparams"), "--results_dir",
+            str(results), "--stats_dir", str(main_stats), "--steps", "10",
+            "--seed", "0", "--sample_num", "2"]
+    with run("c_sequential", cli_entry(argv), off) as row:
+        history = workflows.main(argv)
+    seq_dir = results / "emcid" / "sequential"
+    pngs_seq = sorted(p.name for p in seq_dir.glob("*.png"))
+    want = sorted(f"An image of the current United States president_{s}"
+                  f"-seed{i}.png" for s in ("pre", "round0", "round1",
+                                             "round2") for i in (0, 1))
+    rounds = []
+    for a, b in zip(history, history[1:]):
+        rounds.append(sorted(changed_params(torch, a.text_encoder,
+                                            b.text_encoder)))
+    finish(row, dict(
+        images=pngs_seq, images_ok=pngs_seq == want
+        and uint8_512(pngs(seq_dir)),
+        rounds=len(rounds), changed_per_round=rounds,
+        only_fc2_per_round_ok=len(rounds) == 3
+        and all(set(r) == fc2 for r in rounds),
+        bf16_routes_ok=routes_ok(row["routes"])))
+    del history
+    torch.cuda.empty_cache()
+
+    # (d) the mixed ICEB + I2P edit, then the same call again
+    i2p_rows = load_i2p_prompts(data_dir=pres_dir / "data")[:MIXED_I2P_ROWS]
+    kw = dict(num_edit=2, data_dir=eval_dir / "data",
+              cache_dir=tmp / "cache_d", results_dir=results,
+              gen_kwargs=dict(num_inference_steps=10, height=512, width=512,
+                              sampler="pndm"),
+              specificity_classes=2, i2p_rows=i2p_rows,
+              apply_kwargs=dict(stats_dir=main_stats, num_inference_steps=10,
+                                verbose=False))
+    solves, ucalls = [], []
+    with run("d_mixed", "emcid_torch.evals.mixed_safety."
+             "emcid_test_sd_imgnet_and_i2p", off) as row, \
+            spy(uce_mod, "_uce_solve_all", solves), \
+            spy(uce_mod, "edit_model_uce", ucalls):
+        record = emcid_test_sd_imgnet_and_i2p(comps, vit, hp, name, **kw)
+    worst = 0.0
+    for s in solves:
+        (mat2, stack), _, got = s["call"]
+        ref = np.linalg.solve(mat2.double().cpu().numpy(),
+                              stack.double().cpu().numpy().transpose(0, 2, 1))
+        worst = max(worst, float(np.linalg.norm(got.double().cpu().numpy()
+                                                - ref) / np.linalg.norm(ref)))
+    (edited_in, *_), _, edited = ucalls[0]["call"]
+    kv = {f"{n}.weight" for n in uce_mod.cross_attn_kv_layer_names(comps.unet)}
+    key = summary_key(2, hp.mom2_update_weight, hp.edit_weight)
+    stored = json.loads(summary_path(name, "imgnet_aug_i2p", results)
+                        .read_text()).get(key)
+    i2p_images = pngs(Path(record["i2p_image_dir"]))
+    fields = [k for k in record if k.startswith(("pre_", "post_"))]
+    row["summary_key"] = key
+    finish(row, dict(
+        fields=len(fields), fields_finite_ok=len(fields) == 20 and all(
+            np.isfinite(record[k]) for k in fields),
+        summary_key_ok=stored == record,
+        text_fc2_changed_ok=changed_params(
+            torch, comps.text_encoder, edited.text_encoder) == fc2,
+        unet_kv_changed_ok=changed_params(torch, edited_in.unet,
+                                          edited.unet) == kv,
+        solves=len(solves), uce_f32_vs_f64_rel=worst,
+        solve_rel_tolerance=SOLVE_REL_TOL,
+        uce_solve_ok=bool(solves) and worst <= SOLVE_REL_TOL,
+        i2p_images_ok=len(i2p_images) == MIXED_I2P_ROWS
+        and uint8_512(i2p_images),
+        bf16_routes_ok=routes_ok(row["routes"])))
+    del edited_in, edited, ucalls, solves
+    torch.cuda.empty_cache()
+    with run("d_mixed_again", "emcid_torch.evals.mixed_safety."
+             "emcid_test_sd_imgnet_and_i2p", off) as row:
+        again = emcid_test_sd_imgnet_and_i2p(comps, vit, hp, name, **kw)
+    finish(row, dict(same_record_ok=again == record,
+                     k1_launches=row["launches"]["K1 flash_v2_fwd"],
+                     no_generation_ok=row["launches"]["K1 flash_v2_fwd"] == 0
+                     and not row["generated_images"]))
+    del comps, vit
+    torch.cuda.empty_cache()
+
+    # (e) workflows validate in f32 against the folder's self-goldens, then
+    # the same goldens against one perturbed UNet weight
+    goldens = tmp / "goldens.npz"
+    base = ["validate", "--checkpoint_dir", str(ckpt_dir), "--f32"]
+    calls = []
+    with run("e_validate", "python -m emcid_torch.cli.workflows "
+             "validate --f32", off) as row, \
+            spy(validate_mod, "validate_against_goldens", calls):
+        workflows.main(base + ["--make_self_goldens", str(goldens)])
+        errs = workflows.main(base + ["--goldens", str(goldens)])
+    (vcomps, _), _, _ = calls[0]["call"]
+    unet = copy.deepcopy(vcomps.unet)
+    with torch.no_grad():
+        w = unet.get_submodule("mid_block.resnets.0.conv1").weight
+        w.add_(0.05 * w.abs().max())
+    t0 = time.time()
+    try:
+        validate_mod.validate_against_goldens(
+            vcomps.replace_unet(unet), str(goldens), rtol=1e-4, atol=1e-4,
+            verbose=False)
+        perturbed = "passed"
+    except AssertionError as e:
+        perturbed = str(e).strip().splitlines()[0][:80]
+    row["perturbed_check_s"] = time.time() - t0
+    finish(row, dict(
+        errors=errs, checks_ok=set(errs) == {
+            "text_hidden", "text_pooled", "unet_eps", "vae_decode",
+            "vae_enc_mean", "vae_enc_logvar", "pndm_traj"},
+        perturbed=perturbed, perturbed_fails_ok=perturbed != "passed"))
+    del vcomps, unet, calls
+    torch.cuda.empty_cache()
+    return trace_row, finetune_row
 
 
 # ---------------------------------------------------------------------------
@@ -3006,7 +3429,8 @@ def sdxl_path(torch, tmp: Path, ref, build_s, failures):
 
 
 def kernel_table(rows, launches, routes, eval_run, sdxl_run, xkv_run,
-                 region_run, preservation_run, refact_run):
+                 region_run, preservation_run, refact_run, trace_run,
+                 finetune_run):
     """One entry per kernel: the product-shape bf16 measurement of the
     first shape the main paths give it, and its launches (per route, where
     it has several) in the run that ``launches`` and ``routes`` count (the
@@ -3015,7 +3439,9 @@ def kernel_table(rows, launches, routes, eval_run, sdxl_run, xkv_run,
     the UNet edit path's K/V edit ``xkv_run`` (run (a), knobs off) and
     region edit ``region_run`` (run (c), both knobs at 1), and in the
     preservation path's COCO run ``preservation_run`` (run (b), both knobs
-    at 1) and TIMED run ``refact_run`` (run (d), knobs off)."""
+    at 1) and TIMED run ``refact_run`` (run (d), knobs off), and in the
+    trace path's sweep ``trace_run`` (run (a), knobs off) and finetuning
+    run ``finetune_run`` (run (b), both knobs at 1)."""
     table = []
     for name, (source, replaces) in SOURCES.items():
         timed = [r for r in rows if r["kernel"] == name and "kernel_ms" in r]
@@ -3035,7 +3461,8 @@ def kernel_table(rows, launches, routes, eval_run, sdxl_run, xkv_run,
                            ("unet_edit_x_kv", xkv_run),
                            ("unet_edit_region", region_run),
                            ("preservation", preservation_run),
-                           ("refact", refact_run)):
+                           ("refact", refact_run), ("trace", trace_run),
+                           ("finetune", finetune_run)):
             entry[f"{label}_launches"] = run["launches"].get(name, 0)
             if name in run["routes"]:
                 entry[f"{label}_route_launches"] = run["routes"][name]
@@ -3102,6 +3529,8 @@ def main(argv=None) -> int:
                 evals = eval_path(torch, tmp, ckpt, failures)
                 pres_run, refact_run = preservation_path(
                     torch, tmp, ckpt, Path(stats_dir), failures)
+                trace_run, finetune_run = trace_path(
+                    torch, tmp, ckpt, Path(stats_dir), failures)
     finally:
         shutil.rmtree(stats_dir, ignore_errors=True)
     ref, build_s = build_sdxl(torch)
@@ -3122,7 +3551,7 @@ def main(argv=None) -> int:
     mend = next(r for r in evals if r["run"] == "b_mend")
     emit({"kernels": kernel_table(rows, launches, routes, mend, sdxl,
                                   xkv_run, region_run, pres_run,
-                                  refact_run)})
+                                  refact_run, trace_run, finetune_run)})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,10 @@
     python -m emcid_torch.cli.workflows coco        --hparam ... --sub 1000
     python -m emcid_torch.cli.workflows i2p         --hparam ... --detector_cmd ...
     python -m emcid_torch.cli.workflows layer_stats --hparam ... --layers 0-11
+    python -m emcid_torch.cli.workflows sequential  --hparam ... --sample_num 10
+    python -m emcid_torch.cli.workflows validate    --checkpoint_dir ... --goldens g.npz
+    python -m emcid_torch.cli.workflows validate_openclip --checkpoint oc.pt --goldens g.npz
+    python -m emcid_torch.cli.workflows plots       --figure artists --summary ... --out f.png
 
 Counterpart of ``emcid_tpu/cli/workflows.py`` with the same flags and
 output paths.  The port runs ``aice`` (the AICE harness,
@@ -19,9 +23,14 @@ single-concept benchmark's edit -> generate -> restore loop,
 images, ``evals/artists_eval.py``), ``coco`` (COCO-30k generation and,
 with ``--fid_ref_dir``, FID over InceptionV3, ``evals/coco_eval.py``),
 ``i2p`` (I2P generation and, with ``--detector_cmd`` or
-``--detections_csv``, the nudity count, ``evals/i2p_eval.py``) and
-``layer_stats`` (the covariance pre-cache).  The others stay in the
-parser and raise ``NotImplementedError`` naming their ROADMAP item.
+``--detections_csv``, the nudity count, ``evals/i2p_eval.py``),
+``layer_stats`` (the covariance pre-cache), ``sequential`` (a chain of
+three edits with images before and after each, ``experiments/
+sequential.py``), ``validate`` / ``validate_openclip`` (a checkpoint, or
+the open_clip converters, against a goldens npz, ``cli/validate.py``) and
+``plots`` (figures from summary files, ``evals/plotting.py``; needs
+matplotlib).  ``certify_levers`` stays in the parser and raises
+``NotImplementedError`` naming its ROADMAP item.
 
 Model sources (no hub access): ``--checkpoint_dir`` (a local HF-format SD
 folder, through ``models/loader.load_pipeline``), ``--random-init`` or
@@ -52,11 +61,7 @@ import numpy as np
 # subcommands of the JAX CLI that the port does not run yet, and the
 # ROADMAP item each waits for
 WAITING = {
-    "validate_openclip": "M13 (models/convert_openclip, cli/validate)",
-    "plots": "M12 (evals/plotting, the next M12 slice)",
-    "validate": "M13 (cli/validate)",
-    "certify_levers": "M13 (evals/lever_cert)",
-    "sequential": "M13 (experiments/sequential)",
+    "certify_levers": "M13 (evals/lever_cert, the last module slice)",
 }
 
 
@@ -435,6 +440,92 @@ def cmd_layer_stats(args, timings=None):
     return stats
 
 
+def cmd_sequential(args, timings=None):
+    """The reference's sequential chain: one source prompt edited to three
+    dests in turn, ``--sample_num`` images of the val prompt before and
+    after each round under ``{results}/emcid/sequential``; returns the
+    pipeline after each round (element 0 = the original)."""
+    from emcid_torch.experiments.sequential import sequential_editing
+
+    comps, hparams, gen_kwargs, mesh = _setup(args, timings)
+    prompts_tmp = ["An image of {}", "A photo of {}", "{}"]
+    chain = ["Joe Biden", "Hillary Clinton", "Morgan Freeman"]
+    source = "The Current United States president"
+    rounds = [
+        [{"source": source, "dest": dest, "prompts": prompts_tmp[:],
+          "seed_train": 2024}]
+        for dest in chain
+    ]
+    return sequential_editing(
+        comps, rounds, hparams,
+        val_prompts=["An image of the current United States president"],
+        save_dir=Path(args.results_dir or "results") / "emcid" / "sequential",
+        mom2_weight=args.mom2_weight, edit_weight=args.edit_weight,
+        sample_num=args.sample_num, gen_kwargs=gen_kwargs,
+        apply_kwargs=dict(
+            stats_dir=args.stats_dir, mesh=mesh,
+            num_inference_steps=gen_kwargs["num_inference_steps"]),
+    )
+
+
+def cmd_plots(args):
+    """Figure generation from result files (reference scripts/plot_metrics.py
+    __main__ + experiments/ablation.py plotters, parameterized: summaries in,
+    one figure out); returns the figure's path."""
+    import glob
+    import re
+
+    from emcid_torch.evals import plotting as P
+
+    def _labeled(pairs):
+        out = {}
+        for item in pairs or []:
+            label, _, path = item.partition("=")
+            out[label if path else Path(item).stem] = path or item
+        return out
+
+    if args.figure == "artists":
+        P.plot_artists_lpips_clip(
+            _labeled(args.summary), args.out, max_x=args.max_x,
+            orig_summary_path=args.orig_summary)
+    elif args.figure == "coco":
+        P.plot_coco_multi(_labeled(args.summary), args.out,
+                          plot_lpips=args.plot_lpips, max_x=args.max_x,
+                          direction=args.direction)
+    elif args.figure == "debias_ratios":
+        P.plot_debias_ratios(args.csv, args.out)
+    elif args.figure == "edit_weight_ablation":
+        # one summary holds keys edit{n}_weight{w}[_ew{e}] across the sweep
+        rows = P.load_summary_records(args.summary[0])
+        points = {r["edit_weight"]: r for r in rows
+                  if args.num_edit is None or r["num_edit"] == args.num_edit}
+        P.plot_ablation_curves(points, args.out, xlabel="edit_weight")
+    elif args.figure in ("token_ablation", "layer_ablation"):
+        # per-variant summary files; variant parsed from the directory name
+        # ("..._tok{t}" / "...ly{a}-{b}", reference ablation.py:577-696)
+        points, cells = {}, {}
+        for path in glob.glob(args.glob):
+            rows = P.load_summary_records(path)
+            if not rows:
+                continue
+            rec = max(rows, key=lambda r: r["num_edit"])
+            if args.figure == "token_ablation":
+                m = re.search(r"_tok(\d+)", path)
+                if m:
+                    points[int(m.group(1))] = rec
+            else:
+                m = re.search(r"ly(\d+)-(\d+)", path)
+                if m:
+                    cells[(int(m.group(1)), int(m.group(2)))] = rec
+        if args.figure == "token_ablation":
+            P.plot_ablation_curves(points, args.out,
+                                   xlabel="num_edit_tokens")
+        else:
+            P.plot_layer_ablation(cells, args.out)
+    print(f"figure written to {args.out}")
+    return Path(args.out)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description=__doc__.splitlines()[0],
@@ -472,9 +563,12 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser("validate")
     _add_common(p)
-    p.add_argument("--goldens", default=None)
-    p.add_argument("--make_self_goldens", default=None)
-    p.add_argument("--f32", action="store_true")
+    p.add_argument("--goldens", default=None,
+                   help="goldens npz from scripts/make_goldens_torch.py")
+    p.add_argument("--make_self_goldens", default=None,
+                   help="write a self-goldens npz instead of validating")
+    p.add_argument("--f32", action="store_true",
+                   help="load the checkpoint in float32 (tight tolerances)")
 
     p = sub.add_parser("certify_levers")
     _add_common(p)
@@ -482,10 +576,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n_concepts", type=int, default=4)
 
     p = sub.add_parser("validate_openclip")
-    p.add_argument("--checkpoint", required=True)
-    p.add_argument("--goldens", required=True)
-    p.add_argument("--act", default="gelu", choices=["gelu", "quick_gelu"])
-    p.add_argument("--vision_heads", type=int, default=None)
+    p.add_argument("--checkpoint", required=True,
+                   help="open_clip torch state_dict (.bin/.pt)")
+    p.add_argument("--goldens", required=True,
+                   help="npz from scripts/make_goldens_openclip.py")
+    p.add_argument("--act", default="gelu", choices=["gelu", "quick_gelu"],
+                   help="quick_gelu for OpenAI-pretrained checkpoints")
+    p.add_argument("--vision_heads", type=int, default=None,
+                   help="override vision-tower head count (head_width!=64 "
+                   "models outside the known-width table)")
+    p.add_argument("--platform", default="cuda", choices=["cpu", "cuda"],
+                   help="device of the towers' forwards (default: the card)")
 
     p = sub.add_parser("coco")
     _add_common(p)
@@ -560,6 +661,20 @@ def main(argv=None, timings: Optional[Dict[str, float]] = None):
         return cmd_i2p(args, timings)
     if args.cmd == "layer_stats":
         return cmd_layer_stats(args, timings)
+    if args.cmd == "sequential":
+        return cmd_sequential(args, timings)
+    if args.cmd == "validate":
+        from emcid_torch.cli.validate import cmd_validate
+
+        return cmd_validate(args)
+    if args.cmd == "validate_openclip":
+        from emcid_torch.cli.validate import validate_openclip
+
+        return validate_openclip(args.checkpoint, args.goldens, act=args.act,
+                                 vision_heads=args.vision_heads,
+                                 device=args.platform)
+    if args.cmd == "plots":
+        return cmd_plots(args)
     raise NotImplementedError(
         f"workflows {args.cmd} on the port waits for ROADMAP "
         f"{WAITING[args.cmd]}")

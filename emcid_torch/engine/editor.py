@@ -291,11 +291,23 @@ def compute_zs_for_requests(
                     save_z_cache(cache_name, requests[i], zs[k], hparams,
                                  idx=i)
             if verbose:
+                from emcid_torch.profiling import StepReport, stage1_step_flops
+
+                rep = StepReport(
+                    seconds=t2 - t0,
+                    steps=max(hparams.v_num_grad_steps, 1),
+                    flops_per_step=stage1_step_flops(
+                        components.unet.config, len(block),
+                        len(block[0]["prompts"]),
+                        # train_res shrinks the latent grid: report the
+                        # grid Stage 1 ran on, not the native size
+                        latent_hw=res // components.vae_scale,
+                        eps_dest_pooled=bool(optz.eps_pool)))
                 final = (f"{float(losses[-1]):.5f}" if len(losses)
                          else "n/a (0 steps)")
                 print(f"stage1 block {start // block_size}: {len(idxs)} "
-                      f"concepts in {t2 - t0:.1f}s (incl. image gen), "
-                      f"final loss {final}")
+                      f"concepts in {rep.seconds:.1f}s ({rep}; incl. image "
+                      f"gen), final loss {final}")
     stacked = np.stack([np.asarray(z) for z in z_list])
     if stacked.ndim == 2:
         stacked = stacked[:, None, :]

@@ -1,9 +1,9 @@
 """Evaluation harnesses and scorers (counterpart of ``emcid_tpu/evals``):
 the ICEB AICE harness, Concept Rectification, the debias evaluation, the
 RoAD/TIMED single-concept benchmark, the COCO, artist and I2P evaluations,
-the ViT/FID/nudity scorers and the summary-JSON codec.  The JAX package's
-BLIP scorer, mixed-safety, folder-sweep and plotting modules wait (ROADMAP
-M12)."""
+the mixed ICEB + I2P edit, the folder sweeps of causal-trace images, the
+ViT/FID/nudity and BLIP ITM scorers, the figures and the summary-JSON
+codec."""
 
 from emcid_torch.evals.scorers import (
     calculate_single_cls_score,
@@ -35,4 +35,10 @@ from emcid_torch.evals.i2p_eval import (
     detect_nude_classes,
     generate_i2p_imgs,
     i2p_nudity_summary,
+)
+from emcid_torch.evals.mixed_safety import emcid_test_sd_imgnet_and_i2p
+from emcid_torch.evals.folder_sweep import (
+    ImageItem,
+    extract_all_images_cls,
+    extract_all_images_clip,
 )

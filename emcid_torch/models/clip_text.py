@@ -11,6 +11,11 @@ hparams' ``rewrite_module_tmp`` names resolve with ``get_submodule``.
   ``mask[..., None] * delta`` to that layer's output hidden state
   (differentiable: Stage 1 optimizes through it);
 * ``stop_at_layer`` — run layers [0, stop_at_layer] only, no final LN;
+* ``embed_noise`` — (B, S, H) added to the token+position embedding (the
+  causal-tracing corruption seam, reference causal_trace.py:240-251);
+* ``patch_spec`` — ``{layer: (B, S) mask}``: at each given layer's output
+  (after any inject), the masked tokens of rows 1.. take row 0's states
+  (the causal-tracing restore seam, reference causal_trace.py:252-259);
 * ``embed`` / ``layer_forward`` / ``final`` — the stepping API of the
   one-pass Stage-2 insert.
 """
@@ -145,11 +150,15 @@ class CLIPTextEncoder(nn.Module):
                                              config.projection_dim, bias=False)
 
     # ---- stepping API (engine/emcid.py one-pass insert) -----------------
-    def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def embed(self, input_ids: torch.Tensor,
+              embed_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         emb = self.text_model.embeddings
         S = input_ids.shape[1]
         pos = torch.arange(S, device=input_ids.device)[None]
-        return emb.token_embedding(input_ids) + emb.position_embedding(pos)
+        hidden = emb.token_embedding(input_ids) + emb.position_embedding(pos)
+        if embed_noise is not None:
+            hidden = hidden + embed_noise.to(hidden.dtype)
+        return hidden
 
     def layer_forward(self, hidden, mask, layer_idx: int):
         """One encoder layer; returns (hidden, fc2_in, fc2_out)."""
@@ -175,10 +184,12 @@ class CLIPTextEncoder(nn.Module):
         inject_mask: Optional[torch.Tensor] = None,
         capture: Sequence[str] = (),
         stop_at_layer: Optional[int] = None,
+        embed_noise: Optional[torch.Tensor] = None,
+        patch_spec: Optional[Dict[int, torch.Tensor]] = None,
     ) -> TextOutput:
         cfg = self.config
         S = input_ids.shape[1]
-        hidden = self.embed(input_ids)
+        hidden = self.embed(input_ids, embed_noise)
         mask = causal_attention_mask(S, attention_mask,
                                      device=input_ids.device)
         captures: Dict[str, list] = {name: [] for name in capture}
@@ -193,6 +204,9 @@ class CLIPTextEncoder(nn.Module):
                 if inject_mask is not None:
                     delta = inject_mask[..., None] * delta
                 hidden = hidden + delta.to(hidden.dtype)
+            if patch_spec is not None and i in patch_spec:
+                pm = patch_spec[i][..., None].to(hidden.dtype)  # (B, S, 1)
+                hidden = (1.0 - pm) * hidden + pm * hidden[0:1]
             if "fc2_in" in captures:
                 captures["fc2_in"].append(fc2_in)
             if "fc2_out" in captures:

@@ -115,19 +115,38 @@ def sample_latents(
         raise ValueError("one seed per prompt")
     if not 0.0 < cfg_interval <= 1.0:
         raise ValueError(f"cfg_interval={cfg_interval} must be in (0, 1]")
-    dev, dtype = components.device, components.dtype
-    unet = components.unet
+    dev = components.device
     ctx_cond = encode_prompts(components, prompts)
-    do_cfg = guidance_scale > 1.0
-    if do_cfg:
+    ctx_uncond = None
+    if guidance_scale > 1.0:
         neg = (negative_prompts if negative_prompts is not None
                else [""] * len(prompts))
         ctx_uncond = encode_prompts(components, neg)
-        ctx2 = torch.cat([ctx_uncond, ctx_cond])
     if latents is None:
         latents = initial_latents(seeds, height, width,
                                   components.latent_channels,
                                   components.vae_scale, device=dev)
+    return denoise(components, latents, ctx_cond, ctx_uncond,
+                   num_inference_steps=num_inference_steps,
+                   guidance_scale=guidance_scale, sampler=sampler,
+                   cfg_interval=cfg_interval)
+
+
+@torch.no_grad()
+def denoise(components: SDComponents, latents, ctx_cond: torch.Tensor,
+            ctx_uncond: Optional[torch.Tensor] = None, *,
+            num_inference_steps: int = 50, guidance_scale: float = 7.5,
+            sampler: str = "pndm", cfg_interval: float = 1.0
+            ) -> torch.Tensor:
+    """The sampler loop on given text states: channel-last ``latents``
+    (B, h, w, c) -> final latents (B, h, w, c), f32; CFG against
+    ``ctx_uncond`` when ``guidance_scale > 1`` (the JAX package's
+    ``_get_sampler`` run)."""
+    dev, dtype = components.device, components.dtype
+    unet = components.unet
+    do_cfg = guidance_scale > 1.0
+    if do_cfg:
+        ctx2 = torch.cat([ctx_uncond, ctx_cond])
     lat = torch.as_tensor(latents, device=dev).float().permute(0, 3, 1, 2)
 
     def t_of(t):

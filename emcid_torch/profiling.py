@@ -1,15 +1,19 @@
-"""Analytic FLOP counts of the UNet forward and of one Stage-1 step.
+"""Step-time and MFU accounting: analytic FLOP counts of the UNet forward
+and of one Stage-1 step, and ``StepReport``.
 
-Counterpart of ``unet_fwd_flops`` and ``stage1_step_flops`` in
-``emcid_tpu/profiling.py`` (the rest of that module waits, ROADMAP M13).
-The counts are useful work: attention scores unpadded, GroupNorm, SiLU and
-the time/added-condition MLPs (<1%) ignored.  A run divides them by its
-measured seconds for TFLOP/s.
+Counterpart of ``emcid_tpu/profiling.py``.  The counts are useful work:
+attention scores unpadded, GroupNorm, SiLU and the time/added-condition
+MLPs (<1%) ignored.  A run divides them by its measured seconds for
+TFLOP/s, and ``StepReport.mfu`` by the card's peak, ``PEAK_TFLOPS``.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional
+
+# dense bf16 tensor-core peak of one NVIDIA H100 SXM (data sheet)
+PEAK_TFLOPS = 989.0
 
 
 def _conv(cin: int, cout: int, hw: int, k: int = 3) -> float:
@@ -97,8 +101,39 @@ def unet_fwd_flops(config, batch: int, latent_hw: Optional[int] = None,
 
 
 def stage1_step_flops(config, n_concepts: int, n_prompts: int,
-                      latent_hw: Optional[int] = None) -> float:
+                      latent_hw: Optional[int] = None,
+                      eps_dest_pooled: bool = False) -> float:
     """FLOPs of one Stage-1 step for a block: three UNet forwards' worth
     (the edited forward, its backward into the input only, ~1 forward, and
-    the eps_dest forward).  Text-encoder work (<2%) is ignored."""
-    return 3.0 * unet_fwd_flops(config, n_concepts * n_prompts, latent_hw)
+    the eps_dest forward; two with ``eps_dest_pooled``, where the eps_dest
+    forwards were made once over a pool).  Text-encoder work (<2%) is
+    ignored."""
+    fwd_equiv = 2.0 if eps_dest_pooled else 3.0
+    return fwd_equiv * unet_fwd_flops(config, n_concepts * n_prompts,
+                                      latent_hw)
+
+
+@dataclass
+class StepReport:
+    """ms per step, TFLOP/s and MFU of ``steps`` steps of
+    ``flops_per_step`` in ``seconds``."""
+
+    seconds: float
+    steps: int
+    flops_per_step: float
+
+    @property
+    def ms_per_step(self) -> float:
+        return self.seconds / max(self.steps, 1) * 1e3
+
+    @property
+    def tflops(self) -> float:
+        return self.flops_per_step * self.steps / self.seconds / 1e12
+
+    @property
+    def mfu(self) -> float:
+        return self.tflops / PEAK_TFLOPS
+
+    def __str__(self) -> str:
+        return (f"{self.ms_per_step:.0f} ms/step, "
+                f"{self.tflops:.1f} TFLOP/s ({self.mfu * 100:.0f}% MFU)")

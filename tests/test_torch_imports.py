@@ -1,6 +1,8 @@
 """Import hygiene of the PyTorch port: ``emcid_torch`` and ``chip_smoke.py``
 use no JAX and nothing of the JAX package (any ``emcid_tpu`` import runs
-``emcid_tpu/__init__.py``, which imports jax)."""
+``emcid_tpu/__init__.py``, which imports jax), and no module of the port
+imports ``transformers``, ``open_clip`` or ``matplotlib`` when it is
+imported (the card's machine may have none of them)."""
 
 import ast
 import json
@@ -13,6 +15,8 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "emcid_tpu")
+# imported inside the functions that need them, never at module level
+LAZY = ("transformers", "open_clip", "matplotlib")
 
 _PROBE = """
 import importlib, json, pkgutil, sys
@@ -23,7 +27,8 @@ for name in names:
     importlib.import_module(name)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in {forbidden!r})
-print(json.dumps({{"modules": names, "forbidden": loaded}}))
+lazy = sorted(m for m in sys.modules if m.split(".")[0] in {lazy!r})
+print(json.dumps({{"modules": names, "forbidden": loaded, "lazy": lazy}}))
 """
 
 
@@ -39,12 +44,14 @@ def _imported_roots(path: Path):
 
 def test_port_modules_import_without_jax():
     """Every module of the package, imported in a fresh interpreter, leaves
-    no JAX or JAX-package module in ``sys.modules``."""
+    no JAX or JAX-package module, and none of ``LAZY``, in
+    ``sys.modules``."""
     out = subprocess.run(
-        [sys.executable, "-c", _PROBE.format(forbidden=set(FORBIDDEN))],
+        [sys.executable, "-c", _PROBE.format(forbidden=set(FORBIDDEN),
+                                             lazy=set(LAZY))],
         cwd=REPO, capture_output=True, text=True, timeout=300, check=True)
     result = json.loads(out.stdout.strip().splitlines()[-1])
-    assert len(result["modules"]) >= 61, result["modules"]
+    assert len(result["modules"]) >= 75, result["modules"]
     assert {"emcid_torch.cli", "emcid_torch.cli.run_emcid",
             "emcid_torch.ops.groupnorm", "emcid_torch.ops.layernorm",
             "emcid_torch.engine.fim", "emcid_torch.engine.compute_z_variants",
@@ -67,8 +74,19 @@ def test_port_modules_import_without_jax():
             "emcid_torch.models.lpips", "emcid_torch.evals.coco_eval",
             "emcid_torch.evals.artists_eval", "emcid_torch.evals.i2p_eval",
             "emcid_torch.evals.refact_benchmark",
+            # causal tracing, BLIP, the experiments, the figures and the
+            # checkpoint validators
+            "emcid_torch.text.wordpiece", "emcid_torch.models.blip",
+            "emcid_torch.evals.blip", "emcid_torch.evals.folder_sweep",
+            "emcid_torch.evals.mixed_safety", "emcid_torch.evals.plotting",
+            "emcid_torch.interp", "emcid_torch.interp.causal_trace",
+            "emcid_torch.experiments", "emcid_torch.experiments.finetune",
+            "emcid_torch.experiments.sequential",
+            "emcid_torch.experiments.ablation",
+            "emcid_torch.models.convert_openclip", "emcid_torch.cli.validate",
             } <= set(result["modules"])
     assert result["forbidden"] == []
+    assert result["lazy"] == []
 
 
 @pytest.mark.parametrize("source", sorted(
@@ -118,7 +136,25 @@ REEXPORTS = {
             "generate_artist_images", "eval_artists")},
         **{n: f"emcid_torch.evals.i2p_eval:{n}" for n in (
             "generate_i2p_imgs", "detect_nude_classes",
-            "i2p_nudity_summary")}},
+            "i2p_nudity_summary")},
+        "emcid_test_sd_imgnet_and_i2p": "emcid_torch.evals.mixed_safety:"
+                                        "emcid_test_sd_imgnet_and_i2p",
+        **{n: f"emcid_torch.evals.folder_sweep:{n}" for n in (
+            "ImageItem", "extract_all_images_cls",
+            "extract_all_images_clip")}},
+    "emcid_torch.interp": {
+        n: f"emcid_torch.interp.causal_trace:{n}" for n in (
+            "calculate_hidden_flow_text_encoder", "collect_embedding_std",
+            "layername_text_encoder", "trace_important_states",
+            "trace_with_patch_text_encoder")},
+    "emcid_torch.experiments": {
+        "sequential_editing": "emcid_torch.experiments.sequential:"
+                              "sequential_editing",
+        "finetune_text_encoder": "emcid_torch.experiments.finetune:"
+                                 "finetune_text_encoder",
+        **{n: f"emcid_torch.experiments.ablation:{n}" for n in (
+            "edit_weight_ablation", "layer_combination_ablation",
+            "num_edit_tokens_ablation")}},
 }
 
 
