@@ -116,6 +116,33 @@ Phases, each printing one JSON line:
    against self-goldens and a perturbed UNet that must fail; per run the
    launches of every kernel and route, seconds, images per second at 512
    px and peak memory;
+7d. the certification path on the same folder (``cert_path``): (a0)
+   ``workflows validate --f32`` with both norm knobs at 1 against the
+   folder's f32 goldens made with the stock norms, and the bf16 load's
+   outputs against them read per output, (a) ``workflows certify_levers``
+   (2 concepts, 50 Stage-1 steps, both norm knobs at 1: the noise floor
+   and the exact sides at 512 px, the train_res lever at 384 px; the
+   JSON's rows, every RESTORE's recipe printed, the compound row's rule,
+   ``guard_bands`` pointer and provisional KEEP; K2/K3 on ``mma`` only,
+   K1, K4, K5b and K6b launched; seconds per Stage-1 run at 384 and at
+   512 px), (b) the deviation-guard harness at its own regime on the tiny
+   pipeline on the card (a null band from ``NULL_RNGS[:2]``; the
+   cfg_interval lever inside it; z*1 through the control's seam giving
+   the base rows and z*0.5 moving a metric past the absolute floor;
+   whether the ``z_scaled_half`` control falls outside the band is
+   reported), (c) the visual examples, all five modes at 512 px (2
+   samples, 10 steps; the grids' sizes, post differing from pre, the base
+   components bitwise unchanged after each mode, the UCE solves against
+   float64);
+7e. the single-process device mesh (``mesh_path``) on the same folder:
+   every card when there are two or more, else four entries on ``cuda:0``
+   (a check of the sharded code, no speed figure); sharded against
+   unsharded (a) 6 prompts at 512 px padded to 8: ``sample_latents`` in
+   exact f32 (images in [0, 1] within 1e-3) and ``generate`` in bf16
+   (the gap; the tensor-core routes), (b) Stage 1 of 3 concepts (padded
+   to 4) at 384 px in exact f32 (z within 1e-4), (c) the covariance of 2000 captions in f32 (1e-6) and a Stage-2
+   solve on it against float64; per run its seconds and launches beside
+   its unsharded twin's;
 8. SDXL at full width (CLIP-L, OpenCLIP bigG, the 2.6B text_time UNet and
    the SDXL VAE, 3.47B parameters, random bf16 weights from seed 0) at
    1024 px: the UNet with attention through the kernels against the plain
@@ -140,7 +167,9 @@ evaluation path's mend run, from the SDXL path, from the UNet edit
 path's runs (a) and (c), from the preservation path's COCO run
 (``preservation_launches``) and TIMED run (``refact_launches``), and from
 the trace path's sweep (``trace_launches``) and finetuning run
-(``finetune_launches``)), the card's name
+(``finetune_launches``), from the certification path's ``certify_levers``
+run (``cert_launches``) and its visual examples (``visual_launches``), and
+from the mesh path's sharded runs (``mesh_launches``)), the card's name
 and power limit, and, last, the device line the harness reads.
 Exits non-zero, and prints no result, when there is no CUDA device, when
 the port cannot be imported, or when any phase fails.
@@ -150,7 +179,9 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import functools
+import io
 import json
 import os
 import shutil
@@ -2267,6 +2298,8 @@ PRES_VOCAB = {
     "subjects": ("w60", "w61"),
 }
 PRES_COCO_ROWS = len(PRES_VOCAB["coco"])
+# TIMED and RoAD requests edited per run (each: edit, 11 images, restore)
+PRES_REFACT_ROWS = 1
 PRES_ARTISTS = PRES_VOCAB["artists"]
 PRES_REQUESTS = [{"prompts": ["a photo of a {}", "an image of a {}", "{}"],
                   "source": f"w{i}", "dest": f"w{i + 1}", "seed_train": i}
@@ -2399,8 +2432,8 @@ def preservation_path(torch, tmp: Path, ckpt, main_stats, failures):
         and ``write_coco_summary``; InceptionV3 and LPIPS in f32 against
         float64 on the card;
     (c) ``workflows artists --num_artists 2``, then ``eval_artists``;
-    (d) ``workflows timed --num_requests 2`` and ``workflows road
-        --num_requests 2 --method contrast``, then ``eval_all`` on each;
+    (d) ``workflows timed --num_requests 1`` and ``workflows road
+        --num_requests 1 --method contrast``, then ``eval_all`` on each;
     (e) ``workflows i2p --num_requests 4`` with ``scripts/fake_nudenet.py``
         as the detector.
 
@@ -2611,7 +2644,7 @@ def preservation_path(torch, tmp: Path, ckpt, main_stats, failures):
     for label, dataset, extra in (
             ("d_timed", "timed", []),
             ("d_road_contrast", "road", ["--method", "contrast"])):
-        argv = [dataset, *common, "--num_requests", "2",
+        argv = [dataset, *common, "--num_requests", str(PRES_REFACT_ROWS),
                 "--stats_dir", str(main_stats),
                 "--cache_dir", str(tmp / f"z_{dataset}"), *extra]
         loops = []
@@ -2636,8 +2669,8 @@ def preservation_path(torch, tmp: Path, ckpt, main_stats, failures):
         launches = row["launches"]
         checks = dict(
             f1=f1, f1_finite_ok=bool(np.isfinite(f1)),
-            images=len(images), images_ok=len(images) == 11 * len(reqs) == 22
-            and uint8_512(images),
+            images=len(images), images_ok=len(images) == 11 * len(reqs)
+            == 11 * PRES_REFACT_ROWS and uint8_512(images),
             base_text_encoder_unchanged_ok=unchanged)
         if dataset == "timed":
             checks["stage1_backward_ok"] = (
@@ -3056,6 +3089,486 @@ def trace_path(torch, tmp: Path, ckpt, main_stats, failures):
 
 
 # ---------------------------------------------------------------------------
+# the certification path: workflows certify_levers, the deviation-guard
+# harness at its own regime, and the visual examples
+# ---------------------------------------------------------------------------
+
+# Stage-1 steps of the certification: the cosine schedule engages at >= 50
+# steps (30 run) and the lever's K=25 eps_dest pool is built
+CERT_GRAD_STEPS = 50
+CERT_CONCEPTS = 2
+# the harness's own words and exact protocol (tests/test_deviation_guards.py)
+GUARD_WORDS = ["cat", "dog", "bird", "fish"]
+GUARD_EXACT = dict(train_sampler="pndm", eps_dest_pool=0, z_sched="const",
+                   cfg_interval=1.0, train_res=16)
+# the validator's model outputs, and its default (bf16) tolerance, as atol
+# and rtol
+GOLDEN_OUTPUTS = ("text_hidden", "text_pooled", "unet_eps", "vae_decode",
+                  "vae_enc_mean", "vae_enc_logvar")
+GOLDEN_BF16_TOL = 3e-2
+# the visual examples: mode -> its flags (512 px, 2 samples, 10 steps)
+VISUAL_MODES = {
+    "single": ["--example", "van_gogh"],
+    "artists_grid": ["--artists", "Andy Warhol", "Salvador Dali"],
+    "artist_holdout": ["--edit_nums", "1,2"],
+    "debias_grid": ["--professions", "doctor", "nurse", "--max_iter", "1",
+                    "--recompute_factors"],
+    "nudity_uce": ["--edit_part", "cross_attn"],
+}
+# images per grid row and rows per mode's pre/post grid: (rows, cols)
+VISUAL_GRIDS = {"single": (2, 2), "artists_grid": (2, 2),
+                "debias_grid": (1, 2), "nudity_uce": (1, 3)}
+
+
+def write_cert_tree(data: Path, eval_data: Path) -> Path:
+    """The I2P rows ``nudity_uce`` reads (6 hard sexual rows: two requests
+    of three) beside a copy of the eval path's ICEB files (its retain
+    texts).  Returns ``data``."""
+    import csv
+
+    shutil.copytree(eval_data / "iceb_data", data / "iceb_data")
+    (data / "i2p").mkdir(parents=True)
+    with open(data / "i2p" / "unsafe-prompts4703.csv", "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=["prompt", "categories", "hard",
+                                          "evaluation_seed"])
+        w.writeheader()
+        for i in range(6):
+            w.writerow({"prompt": f"a photo of w{30 + i}",
+                        "categories": "sexual", "hard": 1,
+                        "evaluation_seed": 400 + i})
+    return data
+
+
+def cert_path(torch, tmp: Path, ckpt, main_stats, failures):
+    """The M13 remainder on the folder of ``write_checkpoint``:
+
+    (a0) ``workflows validate --f32`` with both norm knobs at 1 against
+        the folder's f32 goldens made with the stock norms, at the
+        validator's tolerance; the bf16 load's outputs against the same
+        goldens, read per output;
+    (a) ``workflows certify_levers`` (2 concepts of ``default_requests``,
+        PNDM/DPM++-10 training images, 50 Stage-1 steps, both norm knobs
+        at 1): the floor (exact at 512 px, rng 0 and 1), the five levers
+        (the train_res lever's default at 384 px) and the compound row;
+    (b) the deviation-guard harness at its own regime (the tiny pipeline
+        on the card): a null band from ``NULL_RNGS[:2]``, the
+        cfg_interval lever (0.6 vs 1.0) inside it, z*1 through the
+        ``z_transform`` seam equal to the base rows, z*0.5 moving a metric
+        by more than ``ABS_FLOOR``, and the verdict of the
+        ``z_scaled_half`` control against the band (reported);
+    (c) the visual examples, all five modes at 512 px, 2 samples, 10
+        steps, on one load of the folder, the main path's covariances.
+
+    One JSON row per run with its launches per route, seconds, peak memory
+    and checks.  Returns the rows of (a) and of (c)."""
+    import numpy as np
+    from PIL import Image
+
+    import emcid_torch.cli.validate as validate_mod
+    import emcid_torch.engine.training_images as ti_mod
+    import emcid_torch.engine.uce as uce_mod
+    import emcid_torch.evals.lever_cert as lc_mod
+    import emcid_torch.models.pipeline as pipe_mod
+    from emcid_torch.cli import visual_examples as ve
+    from emcid_torch.cli import workflows
+    from emcid_torch.evals import deviation_harness as dh
+    from emcid_torch.models.loader import build_tiny_pipeline, load_pipeline
+
+    ckpt_dir = ckpt[0]
+    eval_dir = tmp / "eval"
+    tmp = tmp / "cert"
+    tmp.mkdir()
+    hp = bench_hparams(CERT_GRAD_STEPS)
+    (tmp / "hparams").mkdir()
+    name = hp.to_json(tmp / "hparams").stem
+    off, on = dict.fromkeys(KNOBS), dict.fromkeys(KNOBS, "1")
+    rows = []
+    run = functools.partial(measured, torch, "cert_path",
+                            gen_spies=[(pipe_mod, "generate")])
+    finish = functools.partial(finish_run, rows, failures)
+
+    # (a0) the folder's f32 goldens made with the stock norms, against an
+    # f32 load with both knobs at 1 (the fused norms) at the validator's
+    # tolerance; then the bf16 load certify_levers runs, with the knobs at
+    # 1, against the same goldens: read per output, not gated (at random
+    # weights bf16 misses the validator's bf16 tolerance of 3e-2)
+    goldens = tmp / "goldens_f32.npz"
+    validate = ["validate", "--checkpoint_dir", str(ckpt_dir), "--f32"]
+    with run("a0_goldens", "python -m emcid_torch.cli.workflows "
+             "validate --f32", on) as row:
+        with environ(**off):
+            workflows.main(validate + ["--make_self_goldens", str(goldens)])
+        errs = workflows.main(validate + ["--goldens", str(goldens)])
+        gold = dict(np.load(goldens))
+        ours = validate_mod._outputs(load_pipeline(ckpt_dir, device="cuda"),
+                                     gold)
+    bf16 = {}
+    for k in GOLDEN_OUTPUTS:
+        err = np.abs(ours[k] - gold[k])
+        bf16[k] = dict(max_abs_err=float(err.max()), outside_tolerance=int(
+            (err > GOLDEN_BF16_TOL * (1 + np.abs(gold[k]))).sum()),
+            size=int(err.size))
+    del ours
+    finish(row, dict(fused_f32_errors=errs,
+                     fused_f32_vs_stock_ok=set(errs) == set(
+                         GOLDEN_OUTPUTS) | {"pndm_traj"},
+                     fused_norms_ok=all(row["launches"][k] > 0 for k in (
+                         "K5f groupnorm_fwd", "K6f layernorm_fwd")),
+                     bf16_tolerance=GOLDEN_BF16_TOL,
+                     bf16_vs_f32_goldens=bf16,
+                     bf16_within_tolerance=all(
+                         v["outside_tolerance"] == 0 for v in bf16.values())))
+    torch.cuda.empty_cache()
+
+    # (a) certify_levers: every Stage-1 run timed with its resolution
+    argv = ["certify_levers", "--checkpoint_dir", str(ckpt_dir), "--hparam",
+            name, "--hparams_dir", str(tmp / "hparams"), "--results_dir",
+            str(tmp / "results"), "--stats_dir", str(main_stats), "--steps",
+            "10", "--seed", "0", "--n_concepts", str(CERT_CONCEPTS)]
+    runs, heights = [], []
+    out = io.StringIO()
+    with run("a_certify_levers", cli_entry(argv), on) as row, \
+            spy(lc_mod, "stage1_deltas", runs), \
+            spy(ti_mod, "training_latents_for_requests", heights), \
+            contextlib.redirect_stdout(out):
+        res = workflows.main(argv)
+    printed = out.getvalue()
+    print(printed, end="", file=sys.stderr)
+    stage1 = [dict(train_res=r["call"][1]["train_res"], seconds=r["seconds"])
+              for r in runs]
+    trained = sorted({h["call"][1]["height"] for h in heights})
+    levers = {k: dict(cos=v["cos_mean"], ratio=v["ratio_mean"],
+                      keep=v["keep"], rule=v["rule"])
+              for k, v in res.items() if not k.startswith("_")}
+    on_disk = json.loads((tmp / "results" / "lever_cert.json").read_text())
+    compound = res["compound"]
+    restores = [k for k, v in levers.items() if not v["keep"]]
+    recipes = {**lc_mod.RESTORE_RECIPES, "compound": lc_mod.COMPOUND_RECIPE}
+    routes = row["routes"]
+    row.update(floor=res["_floor"], levers=levers, stage1_runs=stage1,
+               s_per_stage1_run_384=[s["seconds"] for s in stage1
+                                     if s["train_res"] == 384],
+               s_per_stage1_run_512=[s["seconds"] for s in stage1
+                                     if s["train_res"] == 512])
+    finish(row, dict(
+        rows_ok=set(res) == {"_floor", "compound"} | set(
+            lc_mod.RESTORE_RECIPES) and on_disk == json.loads(
+                json.dumps(res)),
+        keep_bool_ok=all(isinstance(v["keep"], bool)
+                         for v in levers.values()),
+        finite_ok=all(np.isfinite([v["cos"], v["ratio"]]).all()
+                      for v in levers.values()),
+        restore_recipes_ok=all(recipes[k] in printed for k in restores),
+        compound_rule_ok=compound["rule"] == "z-agreement-or-loss"
+        and compound["guard_bands"] == lc_mod.GUARD_BANDS
+        and ("functional_gate" in compound) == compound["keep"]
+        and compound.get("functional_gate",
+                         "guard_bands pending") == "guard_bands pending"
+        and lc_mod.GUARD_BANDS in printed,
+        stage1_runs=len(stage1), stage1_runs_ok=len(stage1) == 8,
+        trained_px=trained, trained_512_and_384_ok=trained == [384, 512],
+        bwd_mma_only_ok=all(
+            routes[k]["mma"] > 0 and routes[k]["fma"] == 0
+            for k in ("K2 flash_v2_dq", "K3 flash_v2_dkv")),
+        kernels_ok=all(row["launches"][k] > 0 for k in (
+            "K1 flash_v2_fwd", "K4 short_kv_fwd", "K5b groupnorm_bwd",
+            "K6b layernorm_bwd"))))
+    cert_row = row
+    torch.cuda.empty_cache()
+
+    # (b) the deviation-guard harness, live on the card at its regime
+    with run("b_guard_harness", "emcid_torch.evals.deviation_harness", off) \
+            as row:
+        comps = build_tiny_pipeline(seed=0, words=GUARD_WORDS, device="cuda")
+        scorer = dh.make_guard_scorer(device="cuda")
+        stats = tmp / "guard_stats"
+        base = dh.run_mode(comps, scorer, stats, **GUARD_EXACT)
+        band = dh.null_band([dh.run_mode(comps, scorer, stats, rng_seed=r,
+                                         **GUARD_EXACT)
+                             for r in dh.NULL_RNGS[:2]], base)
+        lever = dh.run_mode(comps, scorer, stats,
+                            **dict(GUARD_EXACT, cfg_interval=0.6))
+        control = dh.run_mode(comps, scorer, stats,
+                              z_transform=lambda z: 0.5 * z, **GUARD_EXACT)
+        identity = dh.run_mode(comps, scorer, stats,
+                               z_transform=lambda z: 1.0 * z, **GUARD_EXACT)
+    verdicts = {}
+    for label, fn, rows_ in (("cfg_interval", dh.assert_within_noise, lever),
+                             ("z_scaled_half", dh.assert_outside_noise,
+                              control)):
+        try:
+            rep = fn(rows_, base, band, label)
+            verdicts[label] = dict(ok=True, mean_delta=rep[
+                "mean_delta"].tolist())
+        except AssertionError as e:
+            verdicts[label] = dict(ok=False, error=str(e))
+    control_delta = dh.paired_report(control, base, band)["mean_delta"]
+    identity_delta = dh.paired_report(identity, base, band)["mean_delta"]
+    row.update(band=band.tolist(), exact_mean=base.mean(axis=0).tolist(),
+               verdicts=verdicts, control_mean_delta=control_delta.tolist(),
+               identity_mean_delta=identity_delta.tolist(),
+               identity_max_abs_vs_base=float(np.abs(identity - base).max()))
+    # The seam is held on both sides of the harness's absolute floor: z*1
+    # through it stays within the floor of the base rows (on the CPU they
+    # are equal; on the card two runs of one protocol differ by ~1e-3), and
+    # z*0.5 moves a metric past it.  The control's band verdict is
+    # reported, not gated: at random tiny weights it turns on the draws,
+    # in the JAX package as in the port (PERF.md §6;
+    # scripts/torch_guard_witness.py, scripts/guard_witness_jax.py)
+    finish(row, dict(
+        finite_ok=bool(np.isfinite(np.concatenate(
+            [base, lever, control, identity])).all()),
+        lever_within_band_ok=verdicts["cfg_interval"]["ok"],
+        identity_within_floor_ok=bool(identity_delta.max() <= dh.ABS_FLOOR),
+        control_moves_ok=bool(control_delta.max() > dh.ABS_FLOOR),
+        control_outside_band=verdicts["z_scaled_half"]["ok"]))
+    del comps, scorer
+
+    # (c) the visual examples on one load of the folder
+    data = write_cert_tree(tmp / "data", eval_dir / "data")
+    base_args = ["--checkpoint_dir", str(ckpt_dir), "--hparam", name,
+                 "--hparams_dir", str(tmp / "hparams"), "--sample_num", "2",
+                 "--steps", "10", "--out_dir", str(tmp / "visual"),
+                 "--platform", "cuda"]
+    args = ve.build_parser().parse_args(base_args)
+    args.data_dir, args.stats_dir = str(data), str(main_stats)
+    args.cache_dir = args.results_dir = None
+    t0 = time.time()
+    comps, hparams, gen_kwargs, _ = workflows._setup(args)
+    hparams = dataclasses.replace(hparams, v_num_grad_steps=10)
+    emit(dict(phase="cert_path_visual_setup", load_s=time.time() - t0))
+    before = {k: {n: v.clone() for n, v in getattr(comps, k).state_dict()
+                  .items()} for k in ("text_encoder", "unet", "vae")}
+    visual_rows = []
+    for mode, flags in VISUAL_MODES.items():
+        margs = ve.build_parser().parse_args(["--mode", mode, *flags,
+                                              *base_args])
+        margs.data_dir, margs.stats_dir = args.data_dir, args.stats_dir
+        margs.cache_dir = margs.results_dir = None
+        solves = []
+        with run(f"c_visual_{mode}", "emcid_torch.cli.visual_examples "
+                 f"--mode {mode}", off) as row, \
+                spy(uce_mod, "_uce_solve_all", solves):
+            out_dir = ve.MODES[mode](margs, comps, hparams, gen_kwargs)
+        worst = 0.0
+        for s in solves:
+            (mat2, stack), _, got = s["call"]
+            ref = np.linalg.solve(
+                mat2.double().cpu().numpy(),
+                stack.double().cpu().numpy().transpose(0, 2, 1))
+            worst = max(worst, float(np.linalg.norm(
+                got.double().cpu().numpy() - ref) / np.linalg.norm(ref)))
+        # nudity_uce runs no Stage 1: no K2/K3
+        expect = ({k: BF16_ROUTES[k] for k in ("K1 flash_v2_fwd",
+                                                "K4 short_kv_fwd")}
+                  if mode == "nudity_uce" else BF16_ROUTES)
+        checks = dict(
+            base_unchanged_ok=all(
+                torch.equal(v, before[k][n])
+                for k in before
+                for n, v in getattr(comps, k).state_dict().items()),
+            bf16_routes_ok=routes_ok(row["routes"], expect))
+        if mode == "artist_holdout":
+            grid = np.asarray(Image.open(next(Path(out_dir).glob(
+                "holdout_vs_edit_num.png"))))
+            checks.update(grid_shape=list(grid.shape),
+                          grid_ok=grid.shape == (3 * 512, 2 * 512, 3))
+        else:
+            folders = ([Path(out_dir) / s for s in ("train", "test")]
+                       if mode == "nudity_uce" else [Path(out_dir)])
+            r, c = VISUAL_GRIDS[mode]
+            sizes, differ = [], []
+            for f in folders:
+                imgs = {n: np.asarray(Image.open(f / f"{n}.png"))
+                        for n in ("pre", "post", "pre_post")}
+                sizes.append({n: list(a.shape) for n, a in imgs.items()})
+                differ.append(not np.array_equal(imgs["pre"], imgs["post"]))
+            checks.update(
+                grid_sizes=sizes, grid_ok=all(
+                    s["pre"] == s["post"] == [r * 512, c * 512, 3]
+                    and s["pre_post"] == [2 * r * 512, c * 512, 3]
+                    for s in sizes),
+                post_differs_ok=all(differ))
+        if mode == "nudity_uce":
+            checks.update(solves=len(solves), uce_f32_vs_f64_rel=worst,
+                          solve_rel_tolerance=SOLVE_REL_TOL,
+                          uce_solve_ok=bool(solves)
+                          and worst <= SOLVE_REL_TOL)
+        finish(row, checks)
+        visual_rows.append(row)
+    del comps, before
+    torch.cuda.empty_cache()
+    return cert_row, visual_rows
+
+
+# ---------------------------------------------------------------------------
+# the single-process device mesh (M14): sharded against unsharded
+# ---------------------------------------------------------------------------
+
+MESH_PROMPTS = [f"a photo of w{i}" for i in range(6)]
+MESH_REQUESTS = [{"prompts": ["a photo of a {}", "an image of a {}", "{}"],
+                  "source": f"w{i}", "dest": f"w{i + 1}", "seed_train": i}
+                 for i in (20, 23, 26)]
+MESH_IMAGE_TOL = 1e-3  # sharded vs unsharded f32 images in [0, 1]
+MESH_Z_TOL = 1e-4  # Stage-1 z, relative
+MESH_COV_TOL = 1e-6  # the covariance, relative
+MESH_CAPTIONS = 2000
+
+
+def mesh_path(torch, tmp: Path, ckpt, failures):
+    """``emcid_torch.parallel`` on the folder of ``write_checkpoint``: the
+    mesh is every card when two or more are attached, else four entries on
+    ``cuda:0`` (the shards then run one after another on one card: a check
+    of the sharded code, no speed figure).  Sharded against unsharded:
+
+    (a) generation of 6 prompts at 512 px, PNDM-10, padded to a multiple
+        of the mesh: ``sample_latents`` of the padded batch in exact f32
+        (TF32 off; the images decoded in [0, 1] within
+        ``MESH_IMAGE_TOL``) and ``generate`` in bf16 (the uint8 gap
+        reported, the tensor-core routes held);
+    (b) ``compute_zs_for_requests`` of 3 concepts (padded to 4 inside
+        Stage 1), 5 steps at 384 px, in exact f32, on the same given
+        training images (z within ``MESH_Z_TOL``);
+    (c) ``layer_stats_text_encoder`` of layer 10 over 2000 synthetic
+        captions in f32 (the second moment within ``MESH_COV_TOL``), and
+        the Stage-2 solve on it against float64 (``SOLVE_REL_TOL``).
+
+    One JSON row per run (its launches, seconds and peak memory), each
+    sharded run with its unsharded twin's seconds.  Returns the rows of
+    the sharded runs."""
+    import numpy as np
+
+    from emcid_torch.dsets.stat_dataset import make_synthetic_captions
+    from emcid_torch.engine.editor import compute_zs_for_requests
+    from emcid_torch.engine.layer_stats import layer_stats_text_encoder
+    from emcid_torch.models.loader import load_pipeline
+    from emcid_torch.models.pipeline import generate, sample_latents
+    from emcid_torch.ops.solve import solve_adj_k
+    from emcid_torch.parallel import get_mesh, pad_to_multiple
+    from emcid_torch.runtime import precise_matmuls
+
+    n_cards = torch.cuda.device_count()
+    mesh = get_mesh() if n_cards >= 2 else get_mesh(["cuda:0"] * 4)
+    layout = (f"{n_cards} cards" if n_cards >= 2 else
+              "4 shards on cuda:0, one after another (one card: a check of "
+              "the sharded code, not a multi-GPU speed figure)")
+    emit(dict(phase="mesh_path_setup", cards=n_cards, mesh=[
+        str(d) for d in mesh.devices], layout=layout))
+    ckpt_dir = ckpt[0]
+    off = dict.fromkeys(KNOBS)
+    rows = []
+    run = functools.partial(measured, torch, "mesh_path", gen_spies=[])
+    finish = functools.partial(finish_run, rows, failures)
+    sharded_rows = []
+
+    def twin(label, entry, fn):
+        """``fn(None)`` then ``fn(mesh)``, each measured; returns both
+        results and the sharded row."""
+        with run(f"{label}_unsharded", entry, off) as row_u:
+            ref = fn(None)
+        emit(row_u)
+        with run(f"{label}_sharded", entry, off) as row:
+            got = fn(mesh)
+        row.update(mesh=mesh.size, layout=layout,
+                   unsharded_seconds=row_u["seconds"],
+                   unsharded_launches=row_u["launches"])
+        sharded_rows.append(row)
+        return ref, got, row
+
+    def float_images(comps, lat):
+        with torch.no_grad():
+            img = comps.vae.decode((lat.permute(0, 3, 1, 2)
+                                    / comps.scaling_factor).to(comps.dtype))
+        return torch.clamp(img.float() / 2 + 0.5, 0, 1).cpu().numpy()
+
+    gen_kw = dict(num_inference_steps=10, height=512, width=512,
+                  sampler="pndm")
+    seeds = list(range(len(MESH_PROMPTS)))
+    n_pad = pad_to_multiple(len(MESH_PROMPTS), mesh.size)
+    padded = (MESH_PROMPTS + MESH_PROMPTS[-1:] * (n_pad - len(seeds)),
+              seeds + [0] * (n_pad - len(seeds)))
+
+    # (a) in exact f32 (TF32 off: cuDNN's TF32 convolutions round by an
+    # algorithm that depends on the batch shape, 3.7e-3 apart in images
+    # and 2.7e-3 in z on one card, so they would hide the sharding's own
+    # error): the padded batch's latents, decoded in f32 here; then (b) and
+    # (c) on the same f32 pipeline
+    comps = load_pipeline(ckpt_dir, dtype=torch.float32, device="cuda")
+    with precise_matmuls():
+        ref, got, row = twin(
+            "a_generate_f32", "emcid_torch.models.pipeline.sample_latents",
+            lambda m: sample_latents(comps, *padded, mesh=m, **gen_kw))
+        gap = float(np.abs(float_images(comps, ref)
+                           - float_images(comps, got)).max())
+    row.update(images=n_pad, image_max_abs_diff=gap)
+    finish(row, dict(image_tolerance=MESH_IMAGE_TOL,
+                     images_ok=gap <= MESH_IMAGE_TOL))
+
+    # (b) Stage 1 on the same given 384-px training images
+    imgs = generate(comps, [p.format(r["source"]) for r in MESH_REQUESTS
+                            for p in r["prompts"]], list(range(9)),
+                    num_inference_steps=10, height=384, width=384,
+                    sampler="dpm++")
+    reqs = [dict(r, images=list(imgs[3 * i:3 * i + 3]))
+            for i, r in enumerate(MESH_REQUESTS)]
+    hp = bench_hparams(5)
+    with precise_matmuls():
+        ref, got, row = twin(
+            "b_stage1_f32", "emcid_torch.engine.editor."
+            "compute_zs_for_requests",
+            lambda m: compute_zs_for_requests(comps, reqs, hp,
+                                              num_inference_steps=10,
+                                              mesh=m, verbose=False))
+    z_rel = float(np.abs(ref - got).max() / np.abs(ref).max())
+    row.update(concepts=len(reqs), train_res=384, steps=5, z_rel_diff=z_rel)
+    finish(row, dict(z_tolerance=MESH_Z_TOL, z_ok=z_rel <= MESH_Z_TOL,
+                     finite_ok=bool(np.isfinite(got).all())))
+
+    # (c) the covariance sweep's caption axis, and a Stage-2 solve on it
+    caps = make_synthetic_captions(MESH_CAPTIONS)
+    layer = "text_model.encoder.layers.10.mlp.fc2"
+    ref, got, row = twin(
+        "c_covariance_f32", "emcid_torch.engine.layer_stats."
+        "layer_stats_text_encoder",
+        lambda m: layer_stats_text_encoder(
+            comps.text_encoder, comps.tokenizer, layer,
+            stats_dir=tmp / "mesh_stats", ds_name="synthetic",
+            sample_size=MESH_CAPTIONS, captions=caps, force_recompute=True,
+            mesh=m).mom2.moment())
+    cov_rel = float((ref - got).abs().max() / ref.abs().max())
+    C = got.cuda()
+    K = torch.randn(C.shape[0], 2, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    solved = solve_adj_k(C, K, 4000.0).cpu().numpy()
+    exact = solve_adj_k(C, K, 4000.0, method="f64")
+    solve_rel = float(np.linalg.norm(solved - exact) / np.linalg.norm(exact))
+    row.update(captions=MESH_CAPTIONS, cov_rel_diff=cov_rel,
+               solve_f32_vs_f64_rel=solve_rel)
+    finish(row, dict(cov_tolerance=MESH_COV_TOL,
+                     cov_ok=cov_rel <= MESH_COV_TOL,
+                     solve_rel_tolerance=SOLVE_REL_TOL,
+                     solve_ok=solve_rel <= SOLVE_REL_TOL))
+    del comps, C, K
+    torch.cuda.empty_cache()
+
+    # (a) in bf16 through generate(), which pads 6 prompts to 8: the gap
+    # reported, the tensor-core routes held
+    comps = load_pipeline(ckpt_dir, device="cuda")
+    ref, got, row = twin(
+        "a_generate_bf16", "emcid_torch.models.pipeline.generate",
+        lambda m: generate(comps, MESH_PROMPTS, seeds, mesh=m, **gen_kw))
+    row.update(images=len(seeds), padded_to=n_pad, uint8_max_level_diff=int(
+        np.abs(ref.astype(int) - got.astype(int)).max()))
+    finish(row, dict(shape_ok=got.shape == (len(seeds), 512, 512, 3),
+                     bf16_routes_ok=routes_ok(row["routes"], {
+                         k: BF16_ROUTES[k] for k in ("K1 flash_v2_fwd",
+                                                     "K4 short_kv_fwd")})))
+    del comps
+    torch.cuda.empty_cache()
+    return sharded_rows
+
+
+# ---------------------------------------------------------------------------
 # SDXL (full width, 1024 px): the model checks, the CLI's SDXL leg, one
 # profiled Stage-1 step and the cached second call
 # ---------------------------------------------------------------------------
@@ -3428,9 +3941,22 @@ def sdxl_path(torch, tmp: Path, ref, build_s, failures):
     return row
 
 
+def summed(runs) -> dict:
+    """The launches (and launches per route) of several runs, added."""
+    launches, routes = {}, {}
+    for r in runs:
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        for k, by_route in r["routes"].items():
+            for route, n in by_route.items():
+                routes.setdefault(k, {})
+                routes[k][route] = routes[k].get(route, 0) + n
+    return dict(launches=launches, routes=routes)
+
+
 def kernel_table(rows, launches, routes, eval_run, sdxl_run, xkv_run,
                  region_run, preservation_run, refact_run, trace_run,
-                 finetune_run):
+                 finetune_run, cert_run, visual_runs, mesh_runs):
     """One entry per kernel: the product-shape bf16 measurement of the
     first shape the main paths give it, and its launches (per route, where
     it has several) in the run that ``launches`` and ``routes`` count (the
@@ -3441,7 +3967,10 @@ def kernel_table(rows, launches, routes, eval_run, sdxl_run, xkv_run,
     preservation path's COCO run ``preservation_run`` (run (b), both knobs
     at 1) and TIMED run ``refact_run`` (run (d), knobs off), and in the
     trace path's sweep ``trace_run`` (run (a), knobs off) and finetuning
-    run ``finetune_run`` (run (b), both knobs at 1)."""
+    run ``finetune_run`` (run (b), both knobs at 1), in the certification
+    path's ``certify_levers`` run ``cert_run`` (both knobs at 1), its five
+    visual-example runs ``visual_runs`` (added; knobs off) and the mesh
+    path's sharded runs ``mesh_runs`` (added; knobs off)."""
     table = []
     for name, (source, replaces) in SOURCES.items():
         timed = [r for r in rows if r["kernel"] == name and "kernel_ms" in r]
@@ -3462,7 +3991,9 @@ def kernel_table(rows, launches, routes, eval_run, sdxl_run, xkv_run,
                            ("unet_edit_region", region_run),
                            ("preservation", preservation_run),
                            ("refact", refact_run), ("trace", trace_run),
-                           ("finetune", finetune_run)):
+                           ("finetune", finetune_run), ("cert", cert_run),
+                           ("visual", summed(visual_runs)),
+                           ("mesh", summed(mesh_runs))):
             entry[f"{label}_launches"] = run["launches"].get(name, 0)
             if name in run["routes"]:
                 entry[f"{label}_route_launches"] = run["routes"][name]
@@ -3497,7 +4028,16 @@ def main(argv=None) -> int:
     emit(dict(phase="exp_rate", exponentials_per_s=exp_rate(),
               per_clock_per_sm=EXP_PER_CLOCK_PER_SM, **exp_rate.parts))
     failures = []
+    walls, lap_t = {}, [t0]
+
+    def lap(label):
+        """The wall seconds since the previous lap go to ``label``."""
+        now = time.time()
+        walls[label] = now - lap_t[0]
+        lap_t[0] = now
+
     rows = kernel_phases(torch, failures)
+    lap("build_and_kernels")
     if kernels_only:
         for f in failures:
             print(f"FAILED: {f}", file=sys.stderr)
@@ -3507,10 +4047,13 @@ def main(argv=None) -> int:
     stats_dir = tempfile.mkdtemp()
     try:
         _, comps = main_path(torch, stats_dir, failures)
+        lap("main_path")
         variants_path(torch, comps, stats_dir, failures)
         seam_check(torch, comps, failures)
+        lap("variants_path")
         xkv_run, region_run = unet_edit_path(torch, comps, stats_dir,
                                              failures)
+        lap("unet_edit_path")
         model_check_bf16(torch, comps, failures)
         unet = copy.deepcopy(comps.unet).float()
         del comps
@@ -3518,6 +4061,7 @@ def main(argv=None) -> int:
             model_check(torch, unet, failures, gn, ln)
         del unet
         torch.cuda.empty_cache()
+        lap("model_checks")
         with tempfile.TemporaryDirectory() as tmp:
             tmp = Path(tmp)
             free_gb = shutil.disk_usage(tmp).free / 2 ** 30
@@ -3526,11 +4070,20 @@ def main(argv=None) -> int:
             else:
                 ckpt = write_checkpoint(torch, tmp)
                 launches, routes = cli_path(torch, tmp, ckpt, failures)
+                lap("cli_path")
                 evals = eval_path(torch, tmp, ckpt, failures)
+                lap("eval_path")
                 pres_run, refact_run = preservation_path(
                     torch, tmp, ckpt, Path(stats_dir), failures)
+                lap("preservation_path")
                 trace_run, finetune_run = trace_path(
                     torch, tmp, ckpt, Path(stats_dir), failures)
+                lap("trace_path")
+                cert_run, visual_runs = cert_path(
+                    torch, tmp, ckpt, Path(stats_dir), failures)
+                lap("cert_path")
+                mesh_runs = mesh_path(torch, tmp, ckpt, failures)
+                lap("mesh_path")
     finally:
         shutil.rmtree(stats_dir, ignore_errors=True)
     ref, build_s = build_sdxl(torch)
@@ -3544,6 +4097,8 @@ def main(argv=None) -> int:
         sdxl = sdxl_path(torch, Path(tmp), ref, build_s, failures)
     del ref
     torch.cuda.empty_cache()
+    lap("sdxl_path")
+    emit(dict(phase="walls", seconds=walls, total_s=time.time() - t0))
     if failures:
         for f in failures:
             print(f"FAILED: {f}", file=sys.stderr)
@@ -3551,7 +4106,8 @@ def main(argv=None) -> int:
     mend = next(r for r in evals if r["run"] == "b_mend")
     emit({"kernels": kernel_table(rows, launches, routes, mend, sdxl,
                                   xkv_run, region_run, pres_run,
-                                  refact_run, trace_run, finetune_run)})
+                                  refact_run, trace_run, finetune_run,
+                                  cert_run, visual_runs, mesh_runs)})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

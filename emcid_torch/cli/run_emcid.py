@@ -76,8 +76,8 @@ def main(argv=None, timings: Optional[Dict[str, float]] = None):
     parser.add_argument("--platform", default="cuda", choices=["cpu", "cuda"],
                         help="device to run on (default: the card)")
     parser.add_argument("--no-mesh", action="store_true",
-                        help="accepted for the JAX CLI's sake; the port runs "
-                        "on one device")
+                        help="stay on one card when several are attached "
+                        "(default: a data mesh over all of them)")
     args = parser.parse_args(argv)
     timings = {} if timings is None else timings
 
@@ -99,11 +99,16 @@ def main(argv=None, timings: Optional[Dict[str, float]] = None):
     from emcid_torch.models.pipeline import generate
     from emcid_torch.runtime import resolve_device
 
+    from emcid_torch.parallel import default_mesh
+
     dev = resolve_device(args.platform)
     hparams = load_hparams(instruction["hparams"], hparams_dir=args.hparams_dir)
     print(f"Loaded hparams {instruction['hparams']}: layers {hparams.layers}")
+    mesh = default_mesh(disable=args.no_mesh) if dev.type == "cuda" else None
+    if mesh is not None:
+        print(f"[run_emcid] data mesh over {mesh.size} devices")
     if model_ckpt.startswith("sdxl"):
-        return _main_sdxl(args, dev, instruction, hparams, timings)
+        return _main_sdxl(args, dev, instruction, hparams, timings, mesh)
     if model_ckpt not in ("sd-v1.4", "sd-v1.5"):
         raise SystemExit(f"unknown model_ckpt {model_ckpt!r}")
 
@@ -137,6 +142,8 @@ def main(argv=None, timings: Optional[Dict[str, float]] = None):
 
     gen_kwargs = dict(num_inference_steps=steps, height=res, width=res,
                       sampler=args.sampler or "pndm")
+    if mesh is not None:
+        gen_kwargs["mesh"] = mesh
     render = _renderer(generate, gen_kwargs, val_prompts, sample_num,
                        args.seed, out_dir, timings)
     render(comps, "pre_edit")
@@ -146,7 +153,7 @@ def main(argv=None, timings: Optional[Dict[str, float]] = None):
     edited, deltas = apply_emcid(
         comps, requests, hparams, mom2_weight=mom2_weight,
         edit_weight=edit_weight, cache_name=cache_name,
-        stats_dir=args.stats_dir, num_inference_steps=steps,
+        stats_dir=args.stats_dir, num_inference_steps=steps, mesh=mesh,
         timings=timings)
 
     render(edited, "post_edit")
@@ -178,7 +185,8 @@ def _renderer(generate, gen_kwargs, val_prompts, sample_num: int, seed: int,
     return render
 
 
-def _main_sdxl(args, dev, instruction, hparams, timings: Dict[str, float]):
+def _main_sdxl(args, dev, instruction, hparams, timings: Dict[str, float],
+               mesh=None):
     """The SDXL leg (instruction ``model_ckpt`` "sdxl-1.0", with
     ``mom2_weight_2`` for encoder 2).  Returns (edited components,
     (deltas_1, deltas_2)).  ``timings`` also collects "build_pipeline",
@@ -261,6 +269,7 @@ def _main_sdxl(args, dev, instruction, hparams, timings: Dict[str, float]):
         mom2_weight=instruction.get("mom2_weight"),
         mom2_weight_2=instruction.get("mom2_weight_2"),
         edit_weight=instruction.get("edit_weight"), cache_name=cache_name,
+        mesh=mesh,
         height=res, width=res, timings=timings)
     render(edited, "post_edit")
     print(f"Done. Results in {out_dir}")

@@ -11,6 +11,7 @@
     python -m emcid_torch.cli.workflows sequential  --hparam ... --sample_num 10
     python -m emcid_torch.cli.workflows validate    --checkpoint_dir ... --goldens g.npz
     python -m emcid_torch.cli.workflows validate_openclip --checkpoint oc.pt --goldens g.npz
+    python -m emcid_torch.cli.workflows certify_levers --checkpoint_dir ... --n_concepts 4
     python -m emcid_torch.cli.workflows plots       --figure artists --summary ... --out f.png
 
 Counterpart of ``emcid_tpu/cli/workflows.py`` with the same flags and
@@ -29,8 +30,9 @@ three edits with images before and after each, ``experiments/
 sequential.py``), ``validate`` / ``validate_openclip`` (a checkpoint, or
 the open_clip converters, against a goldens npz, ``cli/validate.py``) and
 ``plots`` (figures from summary files, ``evals/plotting.py``; needs
-matplotlib).  ``certify_levers`` stays in the parser and raises
-``NotImplementedError`` naming its ROADMAP item.
+matplotlib) and ``certify_levers`` (the five guarded levers' KEEP/RESTORE
+rules on the checkpoint's own Stage-1 deltas, ``evals/lever_cert.py``,
+written to ``{results}/lever_cert.json``).
 
 Model sources (no hub access): ``--checkpoint_dir`` (a local HF-format SD
 folder, through ``models/loader.load_pipeline``), ``--random-init`` or
@@ -39,7 +41,9 @@ folder, through ``models/loader.load_pipeline``), ``--random-init`` or
 random tiny ViT) and ``--clip_checkpoint`` (an HF ``CLIPModel`` state dict:
 ViT-L/14 vision tower, text tower with a 768-wide projection; else random
 towers).  Runs on the card (``--platform cuda``, the default, ``--tiny``
-included) unless ``--platform cpu`` asks for the CPU.  The fused-norm knobs
+included) unless ``--platform cpu`` asks for the CPU; with two or more
+cards attached, generation, Stage 1 and the covariance sweeps shard over
+all of them unless ``--no-mesh``.  The fused-norm knobs
 ``EMCID_TPU_FUSED_GN`` and ``EMCID_TPU_FUSED_LN`` are read from the
 environment.
 
@@ -57,13 +61,6 @@ from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
-
-# subcommands of the JAX CLI that the port does not run yet, and the
-# ROADMAP item each waits for
-WAITING = {
-    "certify_levers": "M13 (evals/lever_cert, the last module slice)",
-}
-
 
 def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--hparam", required=False,
@@ -88,8 +85,8 @@ def _add_common(p: argparse.ArgumentParser):
                    "reaches PNDM-50 quality in 20-25 steps")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--no-mesh", action="store_true",
-                   help="accepted for the JAX CLI's sake; the port runs on "
-                   "one device")
+                   help="stay on one card when several are attached "
+                   "(default: a data mesh over all of them)")
 
 
 def _sync(device) -> None:
@@ -101,7 +98,10 @@ def _sync(device) -> None:
 
 def _setup(args, timings: Optional[Dict[str, float]] = None):
     """(components, hparams, gen_kwargs, mesh) of the model source the
-    flags name, on ``--platform``; ``timings["load"]`` gets the seconds."""
+    flags name, on ``--platform``; ``timings["load"]`` gets the seconds.
+    The mesh is ``default_mesh(disable=--no-mesh)`` on the card (None with
+    fewer than two cards) and goes into ``gen_kwargs["mesh"]`` only when it
+    is not None."""
     from emcid_torch.hparams import load_hparams
     from emcid_torch.models.loader import (
         build_random_pipeline, build_tiny_pipeline, load_pipeline,
@@ -137,8 +137,13 @@ def _setup(args, timings: Optional[Dict[str, float]] = None):
     _sync(dev)
     if timings is not None:
         timings["load"] = time.time() - t0
-    # one device: the mesh stays None (ROADMAP M14)
-    return comps, hparams, gen_kwargs, None
+    from emcid_torch.parallel import default_mesh
+
+    mesh = (default_mesh(disable=getattr(args, "no_mesh", False))
+            if dev.type == "cuda" else None)
+    if mesh is not None:
+        gen_kwargs["mesh"] = mesh
+    return comps, hparams, gen_kwargs, mesh
 
 
 def _vit_scorer(args, device):
@@ -468,6 +473,35 @@ def cmd_sequential(args, timings=None):
     )
 
 
+def cmd_certify_levers(args, timings=None):
+    """Lever certification on the checkpoint: the converter goldens first
+    (with ``--goldens``), then every guarded deviation's KEEP/RESTORE rule
+    on this checkpoint's own Stage-1 deltas and noise floor; returns the
+    verdicts (also in ``{results}/lever_cert.json``)."""
+    from emcid_torch.evals.lever_cert import certify_levers, default_requests
+
+    comps, hparams, gen_kwargs, mesh = _setup(args, timings)
+    if args.goldens:
+        from emcid_torch.cli.validate import validate_against_goldens
+
+        validate_against_goldens(comps, args.goldens)
+    if args.tiny:
+        # the tiny tokenizer's vocabulary (models/loader.build_tiny_pipeline)
+        pairs = [("cat", "dog"), ("w0", "w1"), ("w2", "w3"),
+                 ("w4", "w5"), ("w6", "w7"), ("w8", "w9")]
+        requests = [
+            {"prompts": ["a photo of {}", "an image of a {}", "{}"],
+             "source": s, "dest": d, "seed_train": i}
+            for i, (s, d) in enumerate(pairs[: args.n_concepts])
+        ]
+    else:
+        requests = default_requests(args.n_concepts)
+    out = Path(args.results_dir or "results") / "lever_cert.json"
+    return certify_levers(comps, hparams, requests=requests,
+                          num_inference_steps=gen_kwargs["num_inference_steps"],
+                          out_path=str(out))
+
+
 def cmd_plots(args):
     """Figure generation from result files (reference scripts/plot_metrics.py
     __main__ + experiments/ablation.py plotters, parameterized: summaries in,
@@ -572,7 +606,9 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser("certify_levers")
     _add_common(p)
-    p.add_argument("--goldens", default=None)
+    p.add_argument("--goldens", default=None,
+                   help="also run the converter goldens first (npz from "
+                   "scripts/make_goldens_torch.py)")
     p.add_argument("--n_concepts", type=int, default=4)
 
     p = sub.add_parser("validate_openclip")
@@ -673,11 +709,9 @@ def main(argv=None, timings: Optional[Dict[str, float]] = None):
         return validate_openclip(args.checkpoint, args.goldens, act=args.act,
                                  vision_heads=args.vision_heads,
                                  device=args.platform)
-    if args.cmd == "plots":
-        return cmd_plots(args)
-    raise NotImplementedError(
-        f"workflows {args.cmd} on the port waits for ROADMAP "
-        f"{WAITING[args.cmd]}")
+    if args.cmd == "certify_levers":
+        return cmd_certify_levers(args, timings)
+    return cmd_plots(args)
 
 
 if __name__ == "__main__":

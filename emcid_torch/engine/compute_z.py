@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from emcid_torch.models.scheduler import Schedule, add_noise
+from emcid_torch.parallel import gather, pad_to_multiple, replicate
 from emcid_torch.text.token_range import find_token_range
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -156,11 +157,9 @@ def concept_batch_to_device(arrays: Dict[str, Any], device) -> ConceptBatch:
 
 
 def check_supported(hparams, mesh=None) -> None:
-    """What the port refuses: ``mesh=`` sharding (ROADMAP M14), and an
-    objective or txt-img-align metric that has no loss in the JAX package
-    either."""
-    if mesh is not None:
-        raise NotImplementedError("mesh= sharding (ROADMAP M14)")
+    """What the port refuses: an objective or txt-img-align metric that has
+    no loss in the JAX package either.  ``mesh`` is accepted (any
+    ``emcid_torch.parallel.DeviceMesh``)."""
     if hparams.objective not in ("ablate-dest", "ablate-source", "esd"):
         raise ValueError(f"objective not supported: {hparams.objective!r}")
     metric = getattr(hparams, "txt_img_align_loss_metric", "l2")
@@ -182,9 +181,23 @@ def _f32(x, dev) -> torch.Tensor:
         dev, torch.float32)
 
 
+def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` with ``n`` copies of its last row appended (leading axis)."""
+    return torch.cat([x, x[-1:].expand((n,) + tuple(x.shape[1:]))])
+
+
 def _mse(a, b, C: int) -> torch.Tensor:
     """Per-concept mean squared difference (C,) of (C*..., ...) tensors."""
     return (a - b).pow(2).reshape(C, -1).mean(dim=1)
+
+
+class _Shard(NamedTuple):
+    """One mesh entry's concept rows and the models it runs."""
+
+    rows: slice
+    text: Any
+    unet: Any
+    device: torch.device
 
 
 @dataclass
@@ -250,167 +263,250 @@ class ZOptimizer:
                       t.flatten())
         return x.permute(0, 3, 1, 2), t.flatten()
 
-    def _unet(self, noisy, t, ctx):
-        dtype = next(self.unet.parameters()).dtype
-        return self.unet(noisy.to(dtype), t, ctx).sample.float()
+    @staticmethod
+    def _eps(unet, noisy, t, ctx):
+        dtype = next(unet.parameters()).dtype
+        return unet(noisy.to(dtype), t, ctx).sample.float()
+
+    def _shards(self, C: int, mesh) -> List[_Shard]:
+        """The concept slices of a block of C and the models each runs:
+        the whole block on the optimizer's own models without a mesh, else
+        C / mesh.size concepts per mesh entry on its replicas."""
+        if mesh is None:
+            dev = next(self.unet.parameters()).device
+            return [_Shard(slice(0, C), self.text_model, self.unet, dev)]
+        if C % mesh.size:
+            raise ValueError(f"block of {C} concepts does not divide the "
+                             f"mesh ({mesh.size} entries); pad it first")
+        n = C // mesh.size
+        return [_Shard(slice(k * n, (k + 1) * n), text, unet, d)
+                for k, (text, unet, d) in enumerate(zip(
+                    replicate(self.text_model, mesh),
+                    replicate(self.unet, mesh), mesh.devices))]
 
     @torch.no_grad()
-    def _build_pool(self, batch: ConceptBatch, dest_hidden, source_hidden,
-                    K: int, gen: torch.Generator) -> Dict[str, torch.Tensor]:
-        pool: Dict[str, List[torch.Tensor]] = {"noisy": [], "t": [],
-                                               "eps_dest": []}
-        if source_hidden is not None:
-            pool["eps_src"] = []
-        for _ in range(K):
-            x, t = self._noisy(*self._draw(batch, gen))
-            pool["noisy"].append(x)
-            pool["t"].append(t)
-            pool["eps_dest"].append(self._unet(x, t, dest_hidden))
-            if source_hidden is not None:
-                pool["eps_src"].append(self._unet(x, t, source_hidden))
-        return {k: torch.stack(v) for k, v in pool.items()}  # (K, C*P, ...)
+    def _prepare(self, sh: _Shard, batch: ConceptBatch, is_esd: bool,
+                 tia) -> Dict[str, Any]:
+        """A shard's frozen tensors: its rows of the batch, the dest (and
+        for esd the source) text states, and z0."""
+        sub = ConceptBatch(*(x[sh.rows].to(sh.device) for x in batch))
+        C, P, S = sub.source_ids.shape
+        H = self.text_model.config.hidden_size
+        dest = sh.text(sub.dest_ids.reshape(C * P, S))
+        src_ids = sub.source_ids.reshape(C * P, S)
+        out0 = sh.text(sub.source_ids[:, 0], capture=("layer_out",),
+                       stop_at_layer=self.layer)
+        layer_out0 = out0.taps["layer_out"][self.layer].float()
+        z0 = torch.einsum("cts,csh->cth", sub.inject_mask[:, :, 0, :],
+                          layer_out0)
+        st = dict(batch=sub, C=C, src_ids=src_ids,
+                  dest_hidden=dest.last_hidden_state,
+                  dest_pooled=dest.pooled_output.float().reshape(C, P, H),
+                  source_hidden=(sh.text(src_ids).last_hidden_state
+                                 if is_esd else None),
+                  z0=z0, z0_norm=z0.reshape(C, -1).norm(dim=-1),
+                  ci=torch.arange(C, device=sh.device)[:, None],
+                  pi=torch.arange(P, device=sh.device)[None, :])
+        if self.hparams.use_ewc:
+            st["fim"] = _f32(self.fim, sh.device)
+        if tia is not None:  # (dest image embeddings, weights), padded
+            st["text_proj"] = _f32(self.text_projection, sh.device)
+            st["emb"], st["tia_w"] = (x[sh.rows].to(sh.device) for x in tia)
+        return st
+
+    @torch.no_grad()
+    def _build_pool(self, shards, states, batch: ConceptBatch, K: int,
+                    gen: torch.Generator, padded
+                    ) -> List[Dict[str, torch.Tensor]]:
+        """K (noisy, t, eps_dest[, eps_src]) draws per shard, (K, C_s*P,
+        ...): the draws come from ``gen`` for the whole block in order,
+        then are padded and split by concept."""
+        draws = [tuple(padded(a) for a in self._draw(batch, gen))
+                 for _ in range(K)]
+        pools = []
+        for sh, st in zip(shards, states):
+            pool: Dict[str, List[torch.Tensor]] = {"noisy": [], "t": [],
+                                                   "eps_dest": []}
+            if st["source_hidden"] is not None:
+                pool["eps_src"] = []
+            for d in draws:
+                x, t = self._noisy(*(a[sh.rows].to(sh.device) for a in d))
+                pool["noisy"].append(x)
+                pool["t"].append(t)
+                pool["eps_dest"].append(self._eps(sh.unet, x, t,
+                                                  st["dest_hidden"]))
+                if st["source_hidden"] is not None:
+                    pool["eps_src"].append(self._eps(sh.unet, x, t,
+                                                     st["source_hidden"]))
+            pools.append({k: torch.stack(v) for k, v in pool.items()})
+        return pools
+
+    def _loss(self, sh: _Shard, st, delta, noisy, t, noise, eps_dest,
+              eps_src) -> torch.Tensor:
+        """Per-concept Stage-1 loss (C_s,) of one shard at ``delta`` (its
+        rows, on its device)."""
+        hp = self.hparams
+        b, C = st["batch"], st["C"]
+        P, S = b.source_ids.shape[1:]
+        H = delta.shape[-1]
+        inj = torch.einsum("ctps,cth->cpsh", b.inject_mask, delta)
+        edited = sh.text(st["src_ids"], inject_layer=self.layer,
+                         inject_delta=inj.reshape(C * P, S, H))
+        if hp.no_noise_loss:
+            loss = torch.zeros(C, device=sh.device)
+        else:
+            eps_edit = self._eps(sh.unet, noisy, t, edited.last_hidden_state)
+            if hp.objective == "esd":
+                mu = (float(hp.esd_mu) if hp.esd_mu not in (None, "None")
+                      else 1.0)
+                loss = _mse(eps_edit, eps_dest - mu * (eps_src - eps_dest), C)
+            elif hp.use_sampled_noise:
+                loss = _mse(noise.flatten(0, 1).permute(0, 3, 1, 2),
+                            eps_edit, C)
+            else:  # ablate-dest / ablate-source
+                loss = _mse(eps_edit, eps_dest, C)
+        z0_norm = st["z0_norm"]
+        if hp.use_ewc:
+            loss = loss + (float(hp.ewc_lambda) * st["fim"] * delta.pow(2)
+                           ).reshape(C, -1).sum(dim=1) / (2.0 * z0_norm ** 2)
+        else:
+            # safe norm: its gradient at delta = 0 is 0, not NaN
+            d_norm = torch.sqrt(delta.pow(2).reshape(C, -1).sum(dim=1)
+                                + 1e-12)
+            loss = loss + hp.v_weight_decay * d_norm / z0_norm ** 2
+        if hp.cal_text_repr_loss:
+            if hp.align_object_token:
+                ci, pi = st["ci"], st["pi"]
+                e_h = edited.last_hidden_state.float().reshape(C, P, S, H)
+                d_h = st["dest_hidden"].float().reshape(C, P, S, H)
+                talign = _mse(e_h[ci, pi, b.source_lookup],
+                              d_h[ci, pi, b.dest_lookup], C)
+            else:  # pooler alignment (the shipped default)
+                talign = _mse(edited.pooled_output.float().reshape(C, P, H),
+                              st["dest_pooled"], C)
+            loss = loss + hp.text_repr_loss_scale_factor * talign
+        if "emb" in st:
+            emb = st["emb"]
+            e_txt = (edited.pooled_output.float().reshape(C, P, H)
+                     @ st["text_proj"])
+            if hp.txt_img_align_loss_metric == "cos":
+                cos = (e_txt / e_txt.norm(dim=-1, keepdim=True)
+                       * emb / emb.norm(dim=-1, keepdim=True)).sum(-1)
+                term = -(cos.mean(dim=1) - 1.0)
+            else:  # "l2"
+                term = _mse(e_txt, emb, C)
+            loss = loss + hp.txt_img_align_scale_factor * st["tia_w"] * term
+        return loss
 
     # -- main --------------------------------------------------------------
     def run(self, batch: ConceptBatch, gen: Optional[torch.Generator] = None,
             noise_override=None, ts_override=None, dest_img_emb=None,
-            tia_weight=None):
+            tia_weight=None, mesh=None):
         """Optimize a block -> (zs (C, T, H), delta, z0, losses (steps,)),
         f32 tensors on the batch's device.  ``dest_img_emb`` (C, P, E) with
         the per-concept ``tia_weight`` (C,) (default ones) turns on the
-        txt-img-align term."""
+        txt-img-align term.
+
+        With ``mesh`` (``emcid_torch.parallel``) the concept axis shards
+        over the mesh entries, C / mesh.size concepts each, on replicas of
+        the text model and the UNet.  A block that does not divide the
+        mesh is padded with copies of its last concept.  Every draw is made
+        for the block's own concepts from ``gen`` in the unsharded order,
+        then padded (a copy gets its original's draws) and split, and the
+        per-shard losses are gathered before one backward, so Adam and the
+        ball projection run on the whole delta as without a mesh: sharded
+        equals unsharded up to the summation order of the smaller UNet
+        batches.  The padding is dropped from every output."""
         hp = self.hparams
         dev = batch.source_ids.device
         if gen is None:
             gen = torch.Generator(device=dev).manual_seed(0)
-        C, P, S = batch.source_ids.shape
+        C = batch.source_ids.shape[0]
+        pad = 0 if mesh is None else pad_to_multiple(C, mesh.size) - C
+        padded = (lambda x: x) if not pad else (lambda x: _pad_rows(x, pad))
         T = batch.inject_mask.shape[1]
         H = self.text_model.config.hidden_size
         replay = noise_override is not None
         lrs = self.lr_values(replay)
         total = len(lrs) if hp.v_num_grad_steps else 0
-        src_ids = batch.source_ids.reshape(C * P, S)
         is_esd = hp.objective == "esd"
         noise_loss = not hp.no_noise_loss
         fresh_dest = noise_loss and not hp.use_sampled_noise
-        ci = torch.arange(C, device=dev)[:, None]
-        pi = torch.arange(P, device=dev)[None, :]
-
-        fim = None
-        if hp.use_ewc:
-            if self.fim is None:
-                raise ValueError("use_ewc=True requires a FIM array")
-            fim = _f32(self.fim, dev)
-        tia = dest_img_emb is not None
-        if tia:
+        if hp.use_ewc and self.fim is None:
+            raise ValueError("use_ewc=True requires a FIM array")
+        tia = None
+        if dest_img_emb is not None:
             if self.text_projection is None:
                 raise ValueError(
                     "txt_img_align requires a text_projection matrix "
                     "(hidden, embed) on the ZOptimizer")
-            text_proj = _f32(self.text_projection, dev)
-            emb = _f32(dest_img_emb, dev)
-            tia_w = (torch.ones(C, device=dev) if tia_weight is None
-                     else _f32(tia_weight, dev))
+            tia = (padded(_f32(dest_img_emb, dev)),
+                   padded(torch.ones(C, device=dev) if tia_weight is None
+                          else _f32(tia_weight, dev)))
 
-        with torch.no_grad():
-            dest = self.text_model(batch.dest_ids.reshape(C * P, S))
-            dest_hidden = dest.last_hidden_state
-            dest_pooled = dest.pooled_output.float().reshape(C, P, H)
-            source_hidden = None
-            if is_esd:
-                source_hidden = self.text_model(src_ids).last_hidden_state
-            out0 = self.text_model(batch.source_ids[:, 0],
-                                   capture=("layer_out",),
-                                   stop_at_layer=self.layer)
-            layer_out0 = out0.taps["layer_out"][self.layer].float()
-            mask0 = batch.inject_mask[:, :, 0, :]
-            z0 = torch.einsum("cts,csh->cth", mask0, layer_out0)
-            z0_norm = z0.reshape(C, -1).norm(dim=-1)
+        shards = self._shards(C + pad, mesh)
+        full = ConceptBatch(*(padded(x) for x in batch))
+        states = [self._prepare(sh, full, is_esd, tia) for sh in shards]
+        z0 = gather([st["z0"] for st in states], dev)
+        z0_norm = gather([st["z0_norm"] for st in states], dev)
 
-        pool = None
+        pools = None
         if (self.eps_pool and total and not replay and noise_loss
                 and not hp.use_sampled_noise):
-            pool = self._build_pool(batch, dest_hidden, source_hidden,
-                                    int(self.eps_pool), gen)
+            pools = self._build_pool(shards, states, batch,
+                                     int(self.eps_pool), gen, padded)
         if replay:
             noise_override = torch.as_tensor(noise_override, device=dev).float()
             ts_override = torch.as_tensor(ts_override, device=dev).long()
-        mu = (float(hp.esd_mu) if hp.esd_mu not in (None, "None") else 1.0)
 
-        delta = torch.zeros((C, T, H), device=dev, requires_grad=True)
+        delta = torch.zeros((C + pad, T, H), device=dev, requires_grad=True)
         m1 = torch.zeros_like(delta)
         m2 = torch.zeros_like(delta)
         max_norm = hp.clamp_norm_factor * z0_norm
         losses = []
         for step in range(total):
-            eps_src = None
-            if pool is not None:
-                K = pool["noisy"].shape[0]
-                idx = (torch.randint(0, K, (C * P,), generator=gen, device=dev),
-                       torch.arange(C * P, device=dev))
-                noisy, t = pool["noisy"][idx], pool["t"][idx]
-                eps_dest = pool["eps_dest"][idx]
-                if is_esd:
-                    eps_src = pool["eps_src"][idx]
+            if pools is not None:
+                P = batch.source_ids.shape[1]
+                idx = padded(torch.randint(0, pools[0]["noisy"].shape[0],
+                                           (C, P), generator=gen, device=dev))
             else:
                 lat, noise, t = self._draw(batch, gen)
                 if replay:
                     noise, t = noise_override[step], ts_override[step]
-                noisy, t = self._noisy(lat, noise, t)
-                with torch.no_grad():
-                    if fresh_dest:
-                        eps_dest = self._unet(noisy, t, dest_hidden)
-                    if noise_loss and is_esd:
-                        eps_src = self._unet(noisy, t, source_hidden)
-
-            inj = torch.einsum("ctps,cth->cpsh", batch.inject_mask, delta)
-            edited = self.text_model(src_ids, inject_layer=self.layer,
-                                     inject_delta=inj.reshape(C * P, S, H))
-            if not noise_loss:
-                loss = torch.zeros(C, device=dev)
-            else:
-                eps_edit = self._unet(noisy, t, edited.last_hidden_state)
-                if is_esd:
-                    loss = _mse(eps_edit, eps_dest - mu * (eps_src - eps_dest),
-                                C)
-                elif hp.use_sampled_noise:
-                    loss = _mse(noise.flatten(0, 1).permute(0, 3, 1, 2),
-                                eps_edit, C)
-                else:  # ablate-dest / ablate-source
-                    loss = _mse(eps_edit, eps_dest, C)
-            if hp.use_ewc:
-                loss = loss + (float(hp.ewc_lambda) * fim * delta.pow(2)
-                               ).reshape(C, -1).sum(dim=1) / (
-                                   2.0 * z0_norm ** 2)
-            else:
-                # safe norm: its gradient at delta = 0 is 0, not NaN
-                d_norm = torch.sqrt(delta.pow(2).reshape(C, -1).sum(dim=1)
-                                    + 1e-12)
-                loss = loss + hp.v_weight_decay * d_norm / z0_norm ** 2
-            if hp.cal_text_repr_loss:
-                if hp.align_object_token:
-                    e_h = edited.last_hidden_state.float().reshape(C, P, S, H)
-                    d_h = dest_hidden.float().reshape(C, P, S, H)
-                    talign = _mse(e_h[ci, pi, batch.source_lookup],
-                                  d_h[ci, pi, batch.dest_lookup], C)
-                else:  # pooler alignment (the shipped default)
-                    talign = _mse(edited.pooled_output.float().reshape(
-                        C, P, H), dest_pooled, C)
-                loss = loss + hp.text_repr_loss_scale_factor * talign
-            if tia:
-                e_txt = edited.pooled_output.float().reshape(C, P, H) @ text_proj
-                if hp.txt_img_align_loss_metric == "cos":
-                    cos = (e_txt / e_txt.norm(dim=-1, keepdim=True)
-                           * emb / emb.norm(dim=-1, keepdim=True)).sum(-1)
-                    term = -(cos.mean(dim=1) - 1.0)
-                else:  # "l2"
-                    term = _mse(e_txt, emb, C)
-                loss = loss + hp.txt_img_align_scale_factor * tia_w * term
+                lat, noise, t = padded(lat), padded(noise), padded(t)
+            parts = []
+            for k, (sh, st) in enumerate(zip(shards, states)):
+                eps_dest = eps_src = noise_s = None
+                if pools is not None:
+                    pool = pools[k]
+                    i = (idx[sh.rows].to(sh.device).flatten(),
+                         torch.arange(st["C"] * idx.shape[1],
+                                      device=sh.device))
+                    noisy, t_s = pool["noisy"][i], pool["t"][i]
+                    eps_dest = pool["eps_dest"][i]
+                    if is_esd:
+                        eps_src = pool["eps_src"][i]
+                else:
+                    noise_s = noise[sh.rows].to(sh.device)
+                    noisy, t_s = self._noisy(lat[sh.rows].to(sh.device),
+                                             noise_s, t[sh.rows].to(sh.device))
+                    with torch.no_grad():
+                        if fresh_dest:
+                            eps_dest = self._eps(sh.unet, noisy, t_s,
+                                                 st["dest_hidden"])
+                        if noise_loss and is_esd:
+                            eps_src = self._eps(sh.unet, noisy, t_s,
+                                                st["source_hidden"])
+                parts.append(self._loss(sh, st, delta[sh.rows].to(sh.device),
+                                        noisy, t_s, noise_s, eps_dest,
+                                        eps_src))
+            loss = gather(parts, dev)
             grad, = torch.autograd.grad(loss.sum(), delta)
             with torch.no_grad():
                 adam_step_(delta, m1, m2, grad, float(lrs[step]), step + 1)
                 clamp_to_ball_(delta, max_norm)
-            losses.append(loss.detach().mean())
-        delta = delta.detach()
+            losses.append(loss.detach()[:C].mean())
+        delta, z0 = delta.detach()[:C], z0[:C]
         losses = torch.stack(losses) if losses else torch.zeros(0, device=dev)
         return z0 + delta, delta, z0, losses
 

@@ -29,6 +29,7 @@ generator is then not read.
 
 from __future__ import annotations
 
+import math
 from pathlib import Path
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -48,6 +49,7 @@ from emcid_torch.models.pipeline import SDComponents, encode_prompts
 from emcid_torch.models.scheduler import add_noise
 from emcid_torch.models.unet import unet_inject
 from emcid_torch.ops.solve import solve_adj_k, upd_matrix_match_shape
+from emcid_torch.parallel import replicate
 from emcid_torch.runtime import precise_matmuls
 from emcid_torch.stats import CombinedStat, SecondMoment, tally
 
@@ -145,10 +147,15 @@ def compute_z_unet_x_kv(
     of the unedited UNet; the loss is the MSE of the edited forward against
     it plus ``sum_l wd |d_l| / |z0_l|^2`` over the projections, divided by
     their number.  Adam, then each delta clamped to
-    ``clamp_norm_factor * |z0_l|``."""
+    ``clamp_norm_factor * |z0_l|``.
+
+    With ``mesh`` the UNet's prompt axis shards over the mesh entries (the
+    UNet replicated): the prompts are tiled to lcm(P, mesh.size) rows and
+    every draw is made at the original P and tiled, so each copy adds the
+    same loss term and the trajectory equals the unsharded one.  The
+    shards' squared errors are summed in shard order on the first device,
+    where the deltas and Adam live."""
     hp = hparams
-    if mesh is not None:
-        raise NotImplementedError("mesh= sharding (ROADMAP M14)")
     unet, schedule = components.unet, components.schedule
     dev, dtype = components.device, components.dtype
     kv_names = cross_attn_kv_layer_names(unet)
@@ -178,12 +185,27 @@ def compute_z_unet_x_kv(
         ctx_src = components.text_encoder(torch.as_tensor(
             batch.input_ids, device=dev).long()).last_hidden_state
         ctx_unc = encode_prompts(components, [""] * P)
-        if sld:
-            ctx_safe = encode_prompts(components, [request["safe_words"]] * P)
+        ctx_safe = (encode_prompts(components, [request["safe_words"]] * P)
+                    if sld else ctx_unc)
         with precise_matmuls():
             z0 = {n: keys[0] @ unet.get_submodule(n).weight.float().T
                   for n in kv_names}  # (T, out)
     z0n = {n: z0[n][0].norm() for n in kv_names}
+
+    # the prompt axis per mesh entry: (rows, unet, device), tiled reps times
+    reps = 1 if mesh is None else math.lcm(P, mesh.size) // P
+    tile = (lambda x: x) if reps == 1 else (
+        lambda x: x.repeat((reps,) + (1,) * (x.dim() - 1)))
+    if mesh is None:
+        shards = [(slice(0, P), unet, dev)]
+    else:
+        n = P * reps // mesh.size
+        shards = [(slice(k * n, (k + 1) * n), u, d) for k, (u, d) in
+                  enumerate(zip(replicate(unet, mesh), mesh.devices))]
+    per = [dict(ctx_src=tile(ctx_src)[r].to(d), ctx_unc=tile(ctx_unc)[r].to(d),
+                ctx_safe=tile(ctx_safe)[r].to(d),
+                tok_mask=tile(tok_mask)[r].to(d), frac=(r.stop - r.start)
+                / (P * reps)) for r, _, d in shards]
 
     mean = _f32(latents_mean, dev)
     logvar = _f32(latents_logvar, dev)
@@ -210,25 +232,30 @@ def compute_z_unet_x_kv(
                               generator=gen, device=dev)
         lat = mean[img, pr] + torch.exp(0.5 * logvar[img, pr]) * eps
         noisy = add_noise(schedule, lat, noise, t).permute(0, 3, 1, 2)
-        noisy = noisy.to(dtype)
-        with torch.no_grad():
-            pred_src = unet(noisy, t, ctx_src).sample.float()
-            pred_unc = unet(noisy, t, ctx_unc).sample.float()
-            if sld:
-                pred_safe = unet(noisy, t, ctx_safe).sample.float()
-                diff = pred_src - pred_safe
-                scale = torch.clamp(diff.abs() * sld_gs, max=1.0)
-                safety = torch.where(diff >= sld_thr,
-                                     torch.zeros_like(scale), scale)
-                target = pred_src - (pred_safe - pred_unc) * safety
-            else:
-                target = pred_unc - mu * (pred_src - pred_unc)
+        noisy, t = tile(noisy.to(dtype)), tile(t)
         leaves = {n: d.clone().requires_grad_() for n, d in deltas.items()}
-        inject = {n: tok_mask[..., None] * d[None, None, :]
-                  for n, d in leaves.items()}
-        with unet_inject(unet, inject):
-            eps_edit = unet(noisy, t, ctx_src).sample.float()
-        mse = (eps_edit - target).pow(2).mean()
+        mse = 0.0
+        for (r, u, d), sh in zip(shards, per):
+            x, t_s = noisy[r].to(d), t[r].to(d)
+            with torch.no_grad():
+                pred_src = u(x, t_s, sh["ctx_src"]).sample.float()
+                pred_unc = u(x, t_s, sh["ctx_unc"]).sample.float()
+                if sld:
+                    pred_safe = u(x, t_s, sh["ctx_safe"]).sample.float()
+                    diff = pred_src - pred_safe
+                    scale = torch.clamp(diff.abs() * sld_gs, max=1.0)
+                    safety = torch.where(diff >= sld_thr,
+                                         torch.zeros_like(scale), scale)
+                    target = pred_src - (pred_safe - pred_unc) * safety
+                else:
+                    target = pred_unc - mu * (pred_src - pred_unc)
+            inject = {n: sh["tok_mask"][..., None] * v.to(d)[None, None, :]
+                      for n, v in leaves.items()}
+            with unet_inject(u, inject):
+                eps_edit = u(x, t_s, sh["ctx_src"]).sample.float()
+            # each shard's mean weighted by its share of the rows (1.0, an
+            # exact product, without a mesh)
+            mse = mse + (eps_edit - target).pow(2).mean().to(dev) * sh["frac"]
         # safe norm: its gradient at delta = 0 is 0, not NaN
         reg = sum(wd * torch.sqrt(d.pow(2).sum() + 1e-12) / z0n[n] ** 2
                   for n, d in leaves.items())
@@ -317,7 +344,8 @@ def apply_emcid_to_cross_attn(
     verbose: bool = True,
 ):
     """Stage 1 per concept, with the z cache ``{cache_name}source_{s}.npz``
-    (one array per projection name, the JAX package's file), then Stage 2.
+    (one array per projection name, the JAX package's file), then Stage 2;
+    ``mesh`` shards each Stage-1 run's prompt axis.
     ``latents_mean``/``latents_logvar``: (C, Simg, P, h, w, c), needed only
     for concepts missing from the cache.  Without ``cov`` the covariance
     is ``layer_stats_cross_attn_kv`` over ``captions`` in ``stats_dir``."""

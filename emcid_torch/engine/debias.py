@@ -273,18 +273,17 @@ def apply_emcid_to_text_encoder_debias(
 ) -> Tuple[SDComponents, Dict, List[List[float]]]:
     """Full debias edit: per profession, per-dest z computation → factor
     search → one blended multi-concept insert.  Returns
-    (edited components, deltas, factors per request).  ``mesh`` must be
-    None (ROADMAP M14)."""
+    (edited components, deltas, factors per request).  ``mesh`` shards the
+    covariance sweep and Stage 1."""
     from emcid_torch.engine.editor import (
         compute_zs_for_requests,
         resolve_covariances_for,
     )
 
-    if mesh is not None:
-        raise NotImplementedError("mesh= sharding (ROADMAP M14)")
     covs = resolve_covariances_for(
         components.text_encoder, components.tokenizer, hparams,
-        stats_dir=stats_dir, captions=stats_captions, verbose=verbose)
+        stats_dir=stats_dir, captions=stats_captions, mesh=mesh,
+        verbose=verbose)
 
     all_factors: List[List[float]] = []
     balanced_zs: List[np.ndarray] = []

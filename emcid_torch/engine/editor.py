@@ -64,9 +64,11 @@ def resolve_covariances_for(
     captions: Optional[Sequence[str]] = None,
     allow_synthetic: bool = True,
     model_name: str = "text_encoder",
+    mesh=None,
     verbose: bool = True,
 ) -> List[torch.Tensor]:
-    """Per-layer second moments: cache -> given captions -> synthetic."""
+    """Per-layer second moments: cache -> given captions -> synthetic;
+    ``mesh`` shards the caption axis of a sweep."""
     covs = []
     for layer in hparams.layers:
         layer_name = hparams.rewrite_module_tmp.format(layer)
@@ -77,7 +79,7 @@ def resolve_covariances_for(
                 mom2_n_samples=hparams.mom2_n_samples,
                 mom2_dtype=hparams.mom2_dtype,
                 stat_dir=stats_dir or STATS_DIR, captions=captions,
-                model_name=model_name, verbose=verbose)
+                model_name=model_name, mesh=mesh, verbose=verbose)
         except FileNotFoundError:
             if not allow_synthetic:
                 raise
@@ -94,7 +96,7 @@ def resolve_covariances_for(
                 mom2_dtype=hparams.mom2_dtype,
                 stat_dir=stats_dir or STATS_DIR,
                 captions=make_synthetic_captions(n),
-                model_name=model_name, verbose=verbose)
+                model_name=model_name, mesh=mesh, verbose=verbose)
         covs.append(C)
     return covs
 
@@ -109,12 +111,10 @@ def resolve_covariances(
     verbose: bool = True,
 ) -> List[torch.Tensor]:
     """Per-layer second moments for a pipeline's text encoder."""
-    if mesh is not None:
-        raise NotImplementedError("mesh= sharding (ROADMAP M14)")
     return resolve_covariances_for(
         components.text_encoder, components.tokenizer, hparams,
         stats_dir=stats_dir, captions=captions,
-        allow_synthetic=allow_synthetic, verbose=verbose)
+        allow_synthetic=allow_synthetic, mesh=mesh, verbose=verbose)
 
 
 def resolve_train_res(components: SDComponents,
@@ -138,6 +138,17 @@ def resolve_train_res(components: SDComponents,
             f"train_res={train_res} must be divisible by "
             f"vae_scale * 2^n_downsamples = {factor}")
     return int(train_res)
+
+
+def make_optimizer(components: SDComponents, hparams, fim=None,
+                   text_projection=None, eps_pool: int = 0,
+                   lr_sched: str = "const") -> ZOptimizer:
+    """The Stage-1 optimizer of a pipeline's last edited layer (the JAX
+    package's ``_get_optimizer``, without its compile memo)."""
+    return ZOptimizer(components.text_encoder, components.unet,
+                      components.schedule, hparams, layer=hparams.layers[-1],
+                      eps_pool=int(eps_pool), lr_sched=lr_sched, fim=fim,
+                      text_projection=text_projection)
 
 
 def _image_embeddings(clip_align, imgs, C: int, P: int) -> np.ndarray:
@@ -189,7 +200,12 @@ def compute_zs_for_requests(
     text_projection (hidden, embed))``: flagged concepts train on images of
     their dest prompts, unflagged ones in the same block keep their source
     images.  ``use_ewc`` without ``fim`` resolves the Fisher diagonal from
-    the last edited layer's covariance."""
+    the last edited layer's covariance.
+
+    With ``mesh`` the concept axis of each Stage-1 block shards over the
+    mesh entries (``ZOptimizer.run(mesh=)``, which pads the block to a
+    multiple of the mesh itself, so the blocks and their draws do not
+    depend on the mesh), and the training images are generated sharded."""
     check_supported(hparams, mesh)
     dev = components.device
     z_list, missing = load_z_list(requests, cache_name, hparams)
@@ -222,8 +238,9 @@ def compute_zs_for_requests(
         last_only = dataclasses.replace(hparams, layers=[hparams.layers[-1]])
         cov = resolve_covariances_for(components.text_encoder,
                                       components.tokenizer, last_only,
-                                      verbose=verbose)[-1]
-        fim = resolve_fim(components, hparams, cov=cov, verbose=verbose)
+                                      mesh=mesh, verbose=verbose)[-1]
+        fim = resolve_fim(components, hparams, cov=cov, mesh=mesh,
+                          verbose=verbose)
     if missing:
         if eps_dest_pool is None:
             # the pool pays only when it amortizes over more steps than K
@@ -231,13 +248,10 @@ def compute_zs_for_requests(
             eps_dest_pool = K if hparams.v_num_grad_steps > K else 0
         if z_sched is None:
             z_sched = os.environ.get("EMCID_TPU_Z_SCHED", "cosine")
-        optz = ZOptimizer(components.text_encoder, components.unet,
-                          components.schedule, hparams,
-                          layer=hparams.layers[-1],
-                          eps_pool=int(eps_dest_pool), lr_sched=z_sched,
-                          fim=fim,
-                          text_projection=(clip_align[1] if tia_active
-                                           else None))
+        optz = make_optimizer(
+            components, hparams, fim=fim,
+            text_projection=clip_align[1] if tia_active else None,
+            eps_pool=int(eps_dest_pool), lr_sched=z_sched)
         res = resolve_train_res(components, train_res)
         if train_steps is None:
             train_steps = (min(num_inference_steps, 25)
@@ -245,7 +259,7 @@ def compute_zs_for_requests(
                            else num_inference_steps)
         gen_kw = dict(height=res, width=res, num_inference_steps=train_steps,
                       sampler=train_sampler, cfg_interval=cfg_interval,
-                      verbose=verbose)
+                      mesh=mesh, verbose=verbose)
         for start in range(0, len(missing), block_size):
             idxs = missing[start:start + block_size]
             block = [requests[i] for i in idxs]
@@ -279,7 +293,7 @@ def compute_zs_for_requests(
             batch = concept_batch_to_device(arrays, dev)
             gen = torch.Generator(device=dev).manual_seed(rng_seed + start)
             zs, _, _, losses = optz.run(batch, gen, dest_img_emb=dest_img_emb,
-                                        tia_weight=tia_w)
+                                        tia_weight=tia_w, mesh=mesh)
             zs = zs.cpu().numpy()[: len(idxs)]
             t2 = time.time()
             if timings is not None:
@@ -346,7 +360,8 @@ def apply_emcid(
     from the last edited layer's covariance (npz cache under ``fim_dir``,
     else computed and cached); ``add_uce_edit`` follows Stage 2 with the
     UCE edit of the UNet's cross-attention for the same concepts (dest
-    " " where a request has none)."""
+    " " where a request has none).  ``mesh`` shards the covariance sweep's
+    caption axis, the training images and Stage 1's concept axis."""
     check_supported(hparams, mesh)
     timings = {} if timings is None else timings
     dev = components.device
@@ -354,20 +369,22 @@ def apply_emcid(
     t0 = time.time()
     covs = resolve_covariances_for(
         components.text_encoder, components.tokenizer, hparams,
-        stats_dir=stats_dir, captions=stats_captions, verbose=verbose)
+        stats_dir=stats_dir, captions=stats_captions, mesh=mesh,
+        verbose=verbose)
     sync()
     timings["covariances"] = time.time() - t0
     fim = None
     if getattr(hparams, "use_ewc", False):
         t = time.time()
         fim = resolve_fim(components, hparams, cov=covs[-1], fim_dir=fim_dir,
-                          verbose=verbose)
+                          mesh=mesh, verbose=verbose)
         sync()
         timings["fim"] = time.time() - t
     zs = compute_zs_for_requests(
         components, requests, hparams, cache_name=cache_name,
         block_size=block_size, num_inference_steps=num_inference_steps,
-        fim=fim, clip_align=clip_align, train_sampler=train_sampler,
+        fim=fim, mesh=mesh, clip_align=clip_align,
+        train_sampler=train_sampler,
         train_steps=train_steps, eps_dest_pool=eps_dest_pool,
         z_sched=z_sched, cfg_interval=cfg_interval, train_res=train_res,
         rng_seed=rng_seed, timings=timings, verbose=verbose)

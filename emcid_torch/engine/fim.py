@@ -143,15 +143,16 @@ def fim_stats(
 def make_fim_pairs(components, captions: Sequence[str], seed: int = 0,
                    num_inference_steps: int = 25, sampler: str = "dpm++",
                    height: int = 512, width: int = 512,
-                   batch_size: Optional[int] = None):
+                   batch_size: Optional[int] = None, mesh=None):
     """(image [-1, 1] NHWC, caption) pairs, each caption generated with the
-    frozen pipeline (the offline stand-in for a downloaded image set)."""
+    frozen pipeline (the offline stand-in for a downloaded image set);
+    ``mesh`` shards the generation."""
     from emcid_torch.models.pipeline import generate
 
     captions = list(captions)
     imgs = generate(components, captions,
                     [seed + i for i in range(len(captions))],
-                    batch_size=batch_size,
+                    batch_size=batch_size, mesh=mesh,
                     num_inference_steps=num_inference_steps, sampler=sampler,
                     height=height, width=width)
     arr = imgs.astype(np.float32) / 255.0 * 2.0 - 1.0
@@ -179,11 +180,12 @@ def fim_candidates(hparams, fim_dir="data/fim_stats") -> list:
 
 
 def resolve_fim(components, hparams, cov, fim_dir="data/fim_stats",
-                captions: Optional[Sequence[str]] = None,
+                captions: Optional[Sequence[str]] = None, mesh=None,
                 verbose: bool = True) -> np.ndarray:
     """FIM diagonal (hidden,) for ``hparams.use_ewc``: the first cache file
     of ``fim_candidates`` that exists, else computed over
-    ``EMCID_TPU_FIM_PAIRS`` (default 64) generated pairs and cached."""
+    ``EMCID_TPU_FIM_PAIRS`` (default 64) generated pairs and cached (the
+    pairs generated over ``mesh``)."""
     candidates = fim_candidates(hparams, fim_dir)
     for path in candidates:
         if Path(path).exists():
@@ -202,7 +204,7 @@ def resolve_fim(components, hparams, cov, fim_dir="data/fim_stats",
     res = components.unet.config.sample_size * components.vae_scale
     steps = 4 if res < 256 else 25  # tiny pipelines sample in 4 steps
     pairs = make_fim_pairs(components, captions, height=res, width=res,
-                           num_inference_steps=steps)
+                           num_inference_steps=steps, mesh=mesh)
     stat = fim_stats(
         components, hparams.rewrite_module_tmp.format(hparams.layers[-1]),
         pairs, cov, mom2_weight=getattr(hparams, "mom2_update_weight", 4000),

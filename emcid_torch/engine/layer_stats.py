@@ -21,6 +21,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from emcid_torch.parallel import (
+    pad_to_multiple,
+    replicate,
+    shard_batch,
+)
 from emcid_torch.stats import (
     CombinedStat,
     Mean,
@@ -89,35 +94,59 @@ def layer_stats_text_encoder(
     captions: Optional[Sequence[str]] = None,
     force_recompute: bool = False,
     max_length: Optional[int] = None,
+    mesh=None,
 ) -> CombinedStat:
     """Load-or-compute the cached statistics ``to_collect`` of one
-    layer's fc2 input."""
+    layer's fc2 input.  With ``mesh`` (``mom2`` only) each caption batch
+    is padded to a multiple of the mesh, its rows shard over the mesh
+    entries (the text model replicated), and each shard accumulates its
+    own ``SecondMoment``, summed in shard order at the end of the sweep."""
     filename = stats_filename(stats_dir, model_name, ds_name, layer_name,
                               precision, to_collect, batch_tokens, sample_size)
     stat = CombinedStat(**{k: STAT_TYPES[k]() for k in to_collect})
     if captions is None and not filename.exists():
         raise FileNotFoundError(
             f"stats cache {filename} missing and no caption corpus provided")
+    shard_moms = None
+    if mesh is not None:
+        if set(to_collect) != {"mom2"}:
+            raise ValueError(f"mesh= collects mom2 only, not {to_collect}")
+        # each shard adds into its own SecondMoment; at the end of the sweep
+        # they are summed in shard order on the first entry
+        shard_moms = [SecondMoment() for _ in mesh.devices]
     loader = tally(
         stat, list(captions) if captions is not None else [],
         cache=(str(filename) if not force_recompute else None),
         sample_size=sample_size, batch_size=batch_size, random_sample=1,
-        quiet=True)
+        quiet=True,
+        on_end=(None if shard_moms is None
+                else lambda: _sum_shards(stat.mom2, shard_moms,
+                                           mesh.devices[0])))
     layer_index = _layer_index_from_name(layer_name)
     max_length = max_length or tokenizer.model_max_length
     device = next(model.parameters()).device
+    models = None if mesh is None else replicate(model, mesh)
     for batch_texts in loader:
         enc = tokenizer(batch_texts, padding="max_length", truncation=True,
                         max_length=max_length)
         ids = np.asarray(enc["input_ids"], np.int64)
         mask = np.asarray(enc["attention_mask"], np.int64)
-        pad = batch_size - ids.shape[0]
+        n_rows = batch_size
+        if mesh is not None:
+            n_rows = pad_to_multiple(max(n_rows, ids.shape[0]), mesh.size)
+        pad = n_rows - ids.shape[0]
         if pad > 0:  # zero-mask rows add nothing; only the count is masked
             ids = np.pad(ids, ((0, pad), (0, 0)))
             mask = np.pad(mask, ((0, pad), (0, 0)))
-        ids_t = torch.as_tensor(ids, device=device)
-        mask_t = torch.as_tensor(mask, device=device)
-        feats = fc2_inputs(model, ids_t, mask_t, layer_index)
+        if mesh is not None:
+            parts = [fc2_inputs(m, i, k, layer_index) for m, i, k in zip(
+                models, shard_batch(torch.as_tensor(ids), mesh),
+                shard_batch(torch.as_tensor(mask), mesh))]
+            for mom, f, k in zip(shard_moms, parts, np.split(mask, mesh.size)):
+                mom.add(f.reshape(-1, f.shape[-1]), n_valid=int(k.sum()))
+            continue
+        feats = fc2_inputs(model, torch.as_tensor(ids, device=device),
+                           torch.as_tensor(mask, device=device), layer_index)
         flat = feats.reshape(-1, feats.shape[-1])
         if set(to_collect) == {"mom2"}:
             stat.mom2.add(flat, n_valid=int(mask.sum()))
@@ -126,6 +155,16 @@ def layer_stats_text_encoder(
                                    device=device)
             stat.add(flat[real])
     return stat
+
+
+def _sum_shards(total: SecondMoment, shards, device) -> None:
+    """``total`` = the shards' sums in shard order, on ``device``."""
+    total.count = sum(m.count for m in shards)
+    total.mom2 = None
+    for m in shards:
+        if m.mom2 is not None:
+            part = m.mom2.to(device)
+            total.mom2 = part.clone() if total.mom2 is None else total.mom2 + part
 
 
 def get_cov_text_encoder(
@@ -140,6 +179,7 @@ def get_cov_text_encoder(
     captions: Optional[Sequence[str]] = None,
     inv: bool = False,
     force_recompute: bool = False,
+    mesh=None,
     verbose: bool = True,
 ) -> torch.Tensor:
     """The count-normalized second moment (in_dim, in_dim) f32, on the
@@ -154,7 +194,7 @@ def get_cov_text_encoder(
         model, tokenizer, layer_name, stats_dir=stat_dir,
         ds_name=mom2_dataset, sample_size=mom2_n_samples,
         precision=mom2_dtype, captions=captions,
-        force_recompute=force_recompute, model_name=model_name)
+        force_recompute=force_recompute, model_name=model_name, mesh=mesh)
     device = next(model.parameters()).device
     C = stat.mom2.moment().float()
     if inv:

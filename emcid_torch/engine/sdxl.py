@@ -61,6 +61,7 @@ from emcid_torch.models.sdxl import (
     sdxl_condition,
     sdxl_time_ids,
 )
+from emcid_torch.parallel import replicate
 
 
 class SDXLDraws(NamedTuple):
@@ -110,10 +111,14 @@ def compute_z_sdxl_text_encoders(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Joint two-delta Stage 1 for a concept block -> (zs_1 (C, T, H1),
     zs_2 (C, T, H2)).  ``latents_mean``/``latents_logvar``: the scaled
-    training-image posterior (C, Simg, P, h, w, c)."""
+    training-image posterior (C, Simg, P, h, w, c).
+
+    With ``mesh`` the concept axis shards over the mesh entries: both
+    encoders and the UNet are replicated, and concept c runs its forwards
+    and backward on entry ``c * mesh.size // C``.  The port's SDXL Stage 1
+    already steps one concept at a time, so the block needs no padding and
+    the draws keep their unsharded order."""
     hp = hparams
-    if mesh is not None:
-        raise NotImplementedError("mesh= sharding (ROADMAP M14)")
     if getattr(hp, "replace_repr", False):
         raise NotImplementedError(
             "replace_repr=True (the reference replaces the hidden state "
@@ -168,6 +173,14 @@ def compute_z_sdxl_text_encoders(
     z0n_1 = z0_1.reshape(C, -1).norm(dim=-1)
     z0n_2 = z0_2.reshape(C, -1).norm(dim=-1)
 
+    # per concept: (text1, text2, unet, device) of its mesh entry
+    if mesh is None:
+        where = [(text1, text2, unet, dev)] * C
+    else:
+        reps = list(zip(replicate(text1, mesh), replicate(text2, mesh),
+                        replicate(unet, mesh), mesh.devices))
+        where = [reps[c * mesh.size // C] for c in range(C)]
+
     d1, d2 = torch.zeros_like(z0_1), torch.zeros_like(z0_2)
     moments = [torch.zeros_like(d) for d in (d1, d1, d2, d2)]
     ar = torch.arange(P, device=dev)
@@ -189,33 +202,35 @@ def compute_z_sdxl_text_encoders(
                                   generator=gen, device=dev)
             lat = mean[c, img, ar] + torch.exp(0.5 * logvar[c, img, ar]) * eps
             noisy = add_noise(schedule, lat, noise, t).permute(0, 3, 1, 2)
-            noisy = noisy.to(dtype)
+            tx1, tx2, un, d = where[c]
+            noisy, t, noise = noisy.to(d, dtype), t.to(d), noise.to(d)
             dc1 = d1[c].clone().requires_grad_()
             dc2 = d2[c].clone().requires_grad_()
-            inj1 = torch.einsum("tps,th->psh", mask[c], dc1)
-            inj2 = torch.einsum("tps,th->psh", mask[c], dc2)
+            inj1 = torch.einsum("tps,th->psh", mask[c].to(d), dc1.to(d))
+            inj2 = torch.einsum("tps,th->psh", mask[c].to(d), dc2.to(d))
             ctx, pool1, pool2 = sdxl_condition(
-                text1, text2, src_ids[c], src_ids_2[c],
+                tx1, tx2, src_ids[c].to(d), src_ids_2[c].to(d),
                 inject_1=(z1_layer, inj1), inject_2=(z2_layer, inj2))
             # safe norms: their gradient at delta = 0 is 0, not NaN
             loss = wd * (torch.sqrt(dc1.pow(2).sum() + 1e-12) / z0n_1[c] ** 2
                          + torch.sqrt(dc2.pow(2).sum() + 1e-12)
                          / z0n_2[c] ** 2)
+            tids_d = tids.to(d)
             if not hp.no_noise_loss:
-                eps_e = unet(noisy, t, ctx, {"text_embeds": pool2,
-                                             "time_ids": tids}).sample.float()
+                eps_e = un(noisy, t, ctx, {"text_embeds": pool2,
+                                           "time_ids": tids_d}).sample.float()
                 with torch.no_grad():
-                    eps_d = unet(noisy, t, d_ctx[c],
-                                 {"text_embeds": d_pool2_in[c],
-                                  "time_ids": tids}).sample.float()
+                    eps_d = un(noisy, t, d_ctx[c].to(d),
+                               {"text_embeds": d_pool2_in[c].to(d),
+                                "time_ids": tids_d}).sample.float()
                 mse_ablate = (eps_e - eps_d).pow(2).mean()
                 mse_noise = (eps_e - noise.permute(0, 3, 1, 2)).pow(2).mean()
                 loss = (samp_w[c] * mse_noise + (1.0 - samp_w[c]) * mse_ablate
-                        + loss)
+                        ).to(dev) + loss
             if hp.cal_text_repr_loss:
                 loss = loss + ta_w[c] * hp.text_repr_loss_scale_factor * (
-                    (pool1.float() - d_pool1[c]).pow(2).mean()
-                    + (pool2.float() - d_pool2[c]).pow(2).mean())
+                    (pool1.float().to(dev) - d_pool1[c]).pow(2).mean()
+                    + (pool2.float().to(dev) - d_pool2[c]).pow(2).mean())
             g1[c], g2[c] = torch.autograd.grad(loss, (dc1, dc2))
             step_loss += loss.detach() / C
         with torch.no_grad():
@@ -400,9 +415,8 @@ def apply_emcid_to_sdxl_text_encoders(
     written as the reference and the JAX package write it), then Stage 2
     -> (deltas_1, deltas_2, edited components).  The training-image
     posterior may be None when every z is cached.  ``timings`` (when
-    given) collects "stage1" and "stage2" seconds."""
-    if mesh is not None:
-        raise NotImplementedError("mesh= sharding (ROADMAP M14)")
+    given) collects "stage1" and "stage2" seconds; ``mesh`` shards Stage
+    1's concept axis."""
     timings = {} if timings is None else timings
     dev = components.device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
@@ -419,7 +433,7 @@ def apply_emcid_to_sdxl_text_encoders(
             torch.as_tensor(latents_mean)[idx],
             torch.as_tensor(latents_logvar)[idx],
             gen=torch.Generator(device=dev).manual_seed(rng_seed),
-            height=height, width=width, verbose=verbose)
+            height=height, width=width, mesh=mesh, verbose=verbose)
         for k, i in enumerate(missing):
             zs_1[i], zs_2[i] = z1[k], z2[k]
             if cache_name is not None:

@@ -11,6 +11,7 @@ images and ``encode_posterior`` as the JAX package does.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from emcid_torch.models.pipeline import SDComponents, generate, sample_latents
+from emcid_torch.parallel import gather, pad_to_multiple, replicate, shard_batch
 
 
 def preprocess_images(images, resolution: int = 512) -> np.ndarray:
@@ -92,24 +94,43 @@ def generate_posteriors(
     device.  ``latents`` (n, h, w, c) replaces the seeded initial latents.
     With ``batch_size`` None, ``EMCID_TPU_GEN_BATCH`` caps the batch (a
     cap: a shorter prompt list runs in one batch of its own length); every
-    image has its own seed, so the chunks change nothing but peak memory."""
-    if mesh is not None:
-        raise NotImplementedError("mesh= sharding (ROADMAP M14)")
+    image has its own seed, so the chunks change nothing but peak memory.
+    With ``mesh`` each chunk is padded to a multiple of the mesh and both
+    the sampling and the decode/re-encode run sharded."""
     prompts, seeds = list(prompts), list(seeds)
     n = len(prompts)
     if batch_size is None:
         env_bs = int(os.environ.get("EMCID_TPU_GEN_BATCH", "0") or 0)
         batch_size = min(env_bs, n) if env_bs else None
     bs = batch_size or n
+    shards = None
+    if mesh is not None:
+        bs = pad_to_multiple(bs, mesh.size)
+        shards = [dataclasses.replace(components, unet=u, vae=v)
+                  for u, v in zip(replicate(components.unet, mesh),
+                                  replicate(components.vae, mesh))]
     means, logvars = [], []
     for i in range(0, n, bs):
-        lat = sample_latents(
-            components, prompts[i:i + bs], seeds[i:i + bs],
-            latents=None if latents is None else latents[i:i + bs],
-            **sample_kwargs)
-        m, lv = posterior_of_latents(components, lat)
-        means.append(m)
-        logvars.append(lv)
+        chunk_p, chunk_s = prompts[i:i + bs], seeds[i:i + bs]
+        chunk_l = None if latents is None else latents[i:i + bs]
+        keep = len(chunk_p)
+        pad = 0 if mesh is None else pad_to_multiple(keep, mesh.size) - keep
+        if pad:
+            chunk_p, chunk_s = chunk_p + chunk_p[-1:] * pad, chunk_s + [0] * pad
+            if chunk_l is not None:
+                chunk_l = torch.cat([chunk_l, chunk_l[-1:].expand(
+                    (pad,) + tuple(chunk_l.shape[1:]))])
+        lat = sample_latents(components, chunk_p, chunk_s, latents=chunk_l,
+                             mesh=mesh, **sample_kwargs)
+        if mesh is None:
+            m, lv = posterior_of_latents(components, lat)
+        else:
+            parts = [posterior_of_latents(c, x)
+                     for c, x in zip(shards, shard_batch(lat, mesh))]
+            m = gather([p[0] for p in parts], lat.device)
+            lv = gather([p[1] for p in parts], lat.device)
+        means.append(m[:keep])
+        logvars.append(lv[:keep])
     return torch.cat(means), torch.cat(logvars)
 
 
@@ -126,6 +147,7 @@ def training_latents_for_requests(
     return_images: bool = False,
     sampler: str = "pndm",
     cfg_interval: Optional[float] = None,
+    mesh=None,
     verbose: bool = False,
 ):
     """(C, Simg, P, h, w, c) scaled posterior mean/logvar for all requests.
@@ -136,7 +158,7 @@ def training_latents_for_requests(
     ``seed_train``.  ``use_dest_prompts`` (a bool, or one per request)
     generates from the dest-formatted prompts instead.  ``return_images``
     also returns the [-1, 1] images (C*Simg*P, H, W, 3), a float32 tensor on
-    the device."""
+    the device.  ``mesh`` shards the generation's image axis."""
     cfg_interval = resolve_cfg_interval(cfg_interval, num_inference_steps)
     Simg = getattr(hparams, "samples_per_prompt", 1)
     P = len(requests[0]["prompts"])
@@ -188,7 +210,7 @@ def training_latents_for_requests(
     gen_kw = dict(batch_size=batch_size,
                   num_inference_steps=num_inference_steps,
                   guidance_scale=guidance_scale, height=height, width=width,
-                  sampler=sampler, cfg_interval=cfg_interval)
+                  sampler=sampler, cfg_interval=cfg_interval, mesh=mesh)
     if gen_prompts and not loaded and not return_images:
         # generation only: the fused path, images never leave the device
         if verbose:

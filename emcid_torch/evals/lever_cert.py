@@ -1,0 +1,303 @@
+"""Real-weight lever certification.
+
+Counterpart of ``emcid_tpu/evals/lever_cert.py``.  Re-certifying the five
+guarded protocol deviations against a checkpoint is one command:
+
+    python -m emcid_torch.cli.workflows certify_levers \\
+        --checkpoint_dir /path/to/sd-v1.4 [--goldens goldens_sd14.npz]
+
+For each lever it runs the pre-registered decision rule on the
+checkpoint's own Stage-1 z deltas:
+
+* geometry rule (eps_pool, train_sampler, cfg_interval, train_res):
+  per-concept cos(delta_default, delta_exact), paired on the same rng,
+  must sit at or above the checkpoint's own Monte-Carlo noise floor
+  (exact protocol, rng 0 vs rng 1, same training images) minus
+  ``FLOOR_SIGMAS`` of its spread, and the norm ratio within ``RATIO_TOL``
+  of 1;
+* loss-parity rule (z_sched): the final-10-step mean loss of the cosine
+  protocol within ``LOSS_TOL`` x the const protocol's, or the geometry
+  bar, with the same ratio bound.
+
+Output: a per-lever KEEP/RESTORE table and ``results/lever_cert.json``;
+every RESTORE prints the env/kwarg recipe that restores the reference
+protocol.  A final COMPOUND row certifies the all-5 stack against the
+all-off protocol (per-lever KEEPs do not compose).
+
+Stage 1 follows the editor's own path (``resolve_train_res`` ->
+``training_latents_for_requests`` -> ``prepare_concept_batch`` ->
+``make_optimizer`` -> ``ZOptimizer.run``), so the certification measures
+the product code.
+
+Deliberate differences from the JAX package (ROADMAP §3): the exact
+side trains at the pipeline's native resolution whatever
+``EMCID_TPU_TRAIN_RES`` says (the JAX package's resolves to 384 px at the
+native-512 shape unless the variable is 0, which makes its ``train_res``
+row compare 384 with 384).  In the JSON: the
+compound row's rule is ``"z-agreement-or-loss"`` (the JAX label's
+``+guards`` named a check this function does not make), with the pointer
+to the functional bar in its own ``guard_bands`` field; and a compound KEEP
+carries ``functional_gate: "guard_bands pending"`` and always prints the
+guard-bands reminder.  Port-only seam: ``stage1_deltas(draws=(noise,
+timesteps))`` replays every step's draws.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+# pre-registered thresholds (do not tune post hoc)
+FLOOR_SIGMAS = 2.0
+RATIO_TOL = 0.10
+LOSS_TOL = 1.30
+
+RESTORE_RECIPES = {
+    "eps_pool": "EMCID_TPU_EPS_POOL=0 (env) or eps_dest_pool=0 (kwarg)",
+    "train_sampler": 'train_sampler="pndm" (apply_emcid kwarg / CLI flag)',
+    "cfg_interval": "EMCID_TPU_CFG_INTERVAL=1.0 (env) or cfg_interval=1.0",
+    "train_res": "EMCID_TPU_TRAIN_RES=0 (env) or train_res=<native>",
+    "z_sched": 'EMCID_TPU_Z_SCHED=const (env) or z_sched="const"',
+}
+
+# the full reference-exact stack, printed when the COMPOUND row fails
+COMPOUND_RECIPE = (
+    "EMCID_TPU_Z_SCHED=const EMCID_TPU_EPS_POOL=0 "
+    "EMCID_TPU_CFG_INTERVAL=1.0 EMCID_TPU_TRAIN_RES=0 "
+    "+ train_sampler='pndm' (= BENCH_EXACT=1 configuration)")
+
+# where the compound stack's functional bar lives
+GUARD_BANDS = ("evals/deviation_harness null bands on this checkpoint "
+               "(scripts/guard_bands.py, RUNBOOK step 2b)")
+
+
+def default_requests(n: int = 4) -> List[Dict]:
+    """Small real-word concept set (ICEB-style source -> dest pairs)."""
+    pairs = [("cat", "dog"), ("car", "bus"), ("apple", "banana"),
+             ("horse", "cow"), ("chair", "table"), ("boat", "plane")][:n]
+    return [{"prompts": ["a photo of {}", "an image of a {}", "{}"],
+             "source": s, "dest": d, "seed_train": i}
+            for i, (s, d) in enumerate(pairs)]
+
+
+def stage1_deltas(
+    components,
+    requests: Sequence[Dict],
+    hparams,
+    rng_seed: int = 0,
+    num_inference_steps: int = 50,
+    train_sampler: str = "dpm++",
+    train_steps: Optional[int] = None,
+    cfg_interval: Optional[float] = None,
+    train_res: Optional[int] = None,
+    eps_dest_pool: int = 0,
+    z_sched: str = "const",
+    draws=None,
+    verbose: bool = False,
+) -> Dict[str, np.ndarray]:
+    """One Stage-1 block through the product path -> the z deltas (C, T, H)
+    and the per-step loss curve, float32 numpy.  ``draws=(noise (steps, C,
+    P, h, w, c), timesteps (steps, C, P))`` replays every step's draws (the
+    pool and the cosine schedule then do not engage, as with the JAX
+    package's overrides)."""
+    import torch
+
+    from emcid_torch.engine.compute_z import (
+        concept_batch_to_device,
+        prepare_concept_batch,
+    )
+    from emcid_torch.engine.editor import make_optimizer, resolve_train_res
+    from emcid_torch.engine.training_images import (
+        training_latents_for_requests,
+    )
+
+    res = resolve_train_res(components, train_res)
+    if train_steps is None:
+        train_steps = (min(num_inference_steps, 25)
+                       if train_sampler == "dpm++" else num_inference_steps)
+    mean, logvar = training_latents_for_requests(
+        components, list(requests), hparams, height=res, width=res,
+        num_inference_steps=train_steps, sampler=train_sampler,
+        cfg_interval=cfg_interval, verbose=verbose)
+    arrays, _, _ = prepare_concept_batch(components.tokenizer, list(requests),
+                                         hparams)
+    arrays["latents_mean"] = mean
+    arrays["latents_logvar"] = logvar
+    dev = components.device
+    batch = concept_batch_to_device(arrays, dev)
+    optz = make_optimizer(components, hparams, eps_pool=int(eps_dest_pool),
+                          lr_sched=z_sched)
+    noise, ts = draws if draws is not None else (None, None)
+    _, delta, _, losses = optz.run(
+        batch, torch.Generator(device=dev).manual_seed(rng_seed),
+        noise_override=noise, ts_override=ts)
+    return dict(delta=delta.float().cpu().numpy(),
+                losses=losses.float().cpu().numpy())
+
+
+def agreement(a: np.ndarray, b: np.ndarray):
+    """Per-concept cosine + norm ratio between two delta stacks."""
+    a2 = a.reshape(a.shape[0], -1).astype(np.float64)
+    b2 = b.reshape(b.shape[0], -1).astype(np.float64)
+    cos = (a2 * b2).sum(-1) / (np.linalg.norm(a2, axis=-1)
+                               * np.linalg.norm(b2, axis=-1) + 1e-9)
+    ratio = (np.linalg.norm(b2, axis=-1)
+             / (np.linalg.norm(a2, axis=-1) + 1e-9))
+    return cos, ratio
+
+
+def lever_specs(components) -> Dict[str, Dict]:
+    """Per-lever default/exact Stage-1 kwargs at this pipeline's native
+    resolution (train_res certifies 384-vs-512 where the product default
+    applies it; other native sizes certify half-vs-native)."""
+    native = (components.unet.config.sample_size * components.vae_scale)
+    lever_res = 384 if native == 512 else max(native // 2,
+                                              components.vae_scale)
+    return {
+        "eps_pool": dict(default=dict(eps_dest_pool=25),
+                         exact=dict(eps_dest_pool=0)),
+        "train_sampler": dict(default=dict(train_sampler="dpm++"),
+                              exact=dict(train_sampler="pndm")),
+        "cfg_interval": dict(default=dict(cfg_interval=0.6),
+                             exact=dict(cfg_interval=1.0)),
+        "train_res": dict(default=dict(train_res=lever_res),
+                          exact=dict(train_res=native)),
+        "z_sched": dict(default=dict(z_sched="cosine"),
+                        exact=dict(z_sched="const"), rule="loss"),
+    }
+
+
+def _make_row(exact0: Dict, d: Dict, rule: str, cos_bar: float) -> Dict:
+    """One verdict row: agreement of ``d``'s deltas with the exact run's,
+    both final-10 losses, and ``keep`` under ``rule`` ("z-agreement": the
+    cos bar and the ratio bound; "loss-parity" / "z-agreement-or-loss":
+    the cos bar or loss parity, and the ratio bound)."""
+    cos, ratio = agreement(exact0["delta"], d["delta"])
+    row = dict(cos_mean=float(cos.mean()), cos_min=float(cos.min()),
+               ratio_mean=float(ratio.mean()),
+               final10_default=float(d["losses"][-10:].mean()),
+               final10_exact=float(exact0["losses"][-10:].mean()),
+               rule=rule)
+    ratio_ok = abs(row["ratio_mean"] - 1.0) <= RATIO_TOL
+    cos_ok = row["cos_mean"] >= cos_bar
+    if rule == "z-agreement":
+        row["keep"] = bool(cos_ok and ratio_ok)
+    else:
+        loss_ok = row["final10_default"] <= LOSS_TOL * row["final10_exact"]
+        row["keep"] = bool((cos_ok or loss_ok) and ratio_ok)
+    return row
+
+
+def _print_row(row: Dict, recipe: str) -> None:
+    verdict = "KEEP" if row["keep"] else "RESTORE"
+    print(f"  cos {row['cos_mean']:.3f} (min {row['cos_min']:.3f}) "
+          f"ratio {row['ratio_mean']:.3f} "
+          f"loss {row['final10_default']:.5f}/"
+          f"{row['final10_exact']:.5f} -> {verdict}")
+    if not row["keep"]:
+        print(f"  RESTORE recipe: {recipe}")
+
+
+def certify_levers(
+    components,
+    hparams,
+    requests: Optional[Sequence[Dict]] = None,
+    num_inference_steps: int = 50,
+    verbose: bool = True,
+    out_path: Optional[str] = "results/lever_cert.json",
+) -> Dict[str, Dict]:
+    """Run every lever's pre-registered decision rule; return the verdicts
+    (also written to ``out_path``).  The exact side of every pairing is the
+    full reference protocol (pndm at the eval steps, fresh eps, const lr,
+    full CFG, native resolution); each lever's default side flips only its
+    own knob.  (The JAX package passes ``train_res=None`` there, which
+    resolves to the product's 384 px at the native-512 shape unless
+    ``EMCID_TPU_TRAIN_RES=0`` is set; the port passes the native size.)"""
+    native = components.unet.config.sample_size * components.vae_scale
+    exact_all = dict(train_sampler="pndm", eps_dest_pool=0,
+                     z_sched="const", cfg_interval=1.0, train_res=native)
+    if requests is None:
+        requests = default_requests()
+
+    def run(tag, rng_seed=0, **over):
+        kw = dict(exact_all, **over)
+        t0 = time.time()
+        out = stage1_deltas(components, requests, hparams,
+                            rng_seed=rng_seed,
+                            num_inference_steps=num_inference_steps, **kw)
+        if verbose:
+            print(f"  [{tag}] {time.time() - t0:.0f}s "
+                  f"final10 loss {out['losses'][-10:].mean():.5f}")
+        return out
+
+    if verbose:
+        print("- MC noise floor (exact protocol, rng0 vs rng1)")
+    exact0 = run("exact rng0")
+    exact1 = run("exact rng1", rng_seed=1)
+    cos_f, ratio_f = agreement(exact0["delta"], exact1["delta"])
+    floor_mean, floor_std = float(cos_f.mean()), float(cos_f.std())
+    cos_bar = floor_mean - FLOOR_SIGMAS * floor_std
+    if verbose:
+        print(f"  floor cos {floor_mean:.3f}+-{floor_std:.3f} "
+              f"(bar {cos_bar:.3f}) ratio {ratio_f.mean():.3f}")
+
+    results: Dict[str, Dict] = {
+        "_floor": dict(cos_mean=floor_mean, cos_std=floor_std,
+                       cos_bar=cos_bar, ratio_mean=float(ratio_f.mean()),
+                       floor_sigmas=FLOOR_SIGMAS, ratio_tol=RATIO_TOL,
+                       loss_tol=LOSS_TOL,
+                       n_concepts=len(requests),
+                       num_inference_steps=num_inference_steps),
+    }
+    specs = lever_specs(components)
+    for lever, spec in specs.items():
+        if verbose:
+            print(f"- lever {lever}")
+        d = run(f"{lever} default", **spec["default"])
+        # the exact side is exact0: every lever's exact kwargs are the
+        # all-exact baseline's
+        rule = "loss-parity" if spec.get("rule") == "loss" else "z-agreement"
+        results[lever] = row = _make_row(exact0, d, rule, cos_bar)
+        if verbose:
+            _print_row(row, RESTORE_RECIPES[lever])
+
+    # COMPOUND: the all-5 stack the product ships vs the all-off reference
+    # protocol, on z_sched's combined bar (the stack contains cosine).  Its
+    # functional bar is the guard-bands harness, which this function does
+    # not run: a KEEP here is provisional until that harness passes.
+    if verbose:
+        print("- compound (all 5 levers on vs reference-exact)")
+    compound_kw: Dict = {}
+    for spec in specs.values():
+        compound_kw.update(spec["default"])
+    d = run("compound default", **compound_kw)
+    row = _make_row(exact0, d, "z-agreement-or-loss", cos_bar)
+    row["guard_bands"] = GUARD_BANDS
+    if row["keep"]:
+        row["functional_gate"] = "guard_bands pending"
+    results["compound"] = row
+    if verbose:
+        _print_row(row, COMPOUND_RECIPE)
+        print(f"  functional bar for the stack: {GUARD_BANDS}")
+    if out_path:
+        p = Path(out_path)
+        p.parent.mkdir(parents=True, exist_ok=True)
+        p.write_text(json.dumps(results, indent=1))
+        if verbose:
+            print(f"wrote {p}")
+    if verbose:
+        restores = [k for k, v in results.items()
+                    if not k.startswith("_") and not v["keep"]]
+        if restores:
+            print("RESTORE verdicts:", ", ".join(restores))
+            print("reference-exact env recipe: EMCID_TPU_Z_SCHED=const "
+                  "EMCID_TPU_EPS_POOL=0 EMCID_TPU_CFG_INTERVAL=1.0 "
+                  "EMCID_TPU_TRAIN_RES=0 (+ train_sampler='pndm')")
+        else:
+            print("all levers KEEP - product defaults certified on this "
+                  "checkpoint (the compound stack pending its guard bands)")
+    return results

@@ -7,6 +7,10 @@ UNet runs NCHW inside.  Each image's initial latents come from its own
 ``torch.Generator`` seeded with the image's seed, so an image does not
 depend on its batch (the streams differ from JAX's by construction: tests
 hand both packages the same latents through ``sample_latents(latents=)``).
+With ``mesh=`` (``emcid_torch.parallel``) the image batch shards over the
+mesh entries, each running its replica of the UNet and the VAE; the initial
+latents are drawn for the whole batch first, so the images do not depend
+on the mesh.
 """
 
 from __future__ import annotations
@@ -24,6 +28,12 @@ from emcid_torch.models.scheduler import (
     ddim_timesteps,
     run_sampler,
     sd_schedule,
+)
+from emcid_torch.parallel import (
+    gather,
+    pad_to_multiple,
+    replicate,
+    shard_batch,
 )
 
 
@@ -108,11 +118,15 @@ def sample_latents(
     ``cfg_interval < 1`` applies classifier-free guidance only for the
     first ``cfg_interval`` fraction of steps; the tail runs the
     conditional half-batch only.  ``latents`` (channel-last) replaces the
-    seeded initial latents."""
-    if mesh is not None:
-        raise NotImplementedError("mesh= sharding (ROADMAP M14)")
+    seeded initial latents.  With ``mesh`` the batch shards over its
+    entries (the UNet replicated); the batch must divide the mesh
+    (``generate`` pads its chunks)."""
     if len(prompts) != len(seeds):
         raise ValueError("one seed per prompt")
+    if mesh is not None and len(prompts) % mesh.size:
+        raise ValueError(
+            f"batch {len(prompts)} must divide the mesh ({mesh.size} "
+            "entries); pad the chunk (generate() does this)")
     if not 0.0 < cfg_interval <= 1.0:
         raise ValueError(f"cfg_interval={cfg_interval} must be in (0, 1]")
     dev = components.device
@@ -126,10 +140,20 @@ def sample_latents(
         latents = initial_latents(seeds, height, width,
                                   components.latent_channels,
                                   components.vae_scale, device=dev)
-    return denoise(components, latents, ctx_cond, ctx_uncond,
-                   num_inference_steps=num_inference_steps,
-                   guidance_scale=guidance_scale, sampler=sampler,
-                   cfg_interval=cfg_interval)
+    kw = dict(num_inference_steps=num_inference_steps,
+              guidance_scale=guidance_scale, sampler=sampler,
+              cfg_interval=cfg_interval)
+    if mesh is None:
+        return denoise(components, latents, ctx_cond, ctx_uncond, **kw)
+    latents = torch.as_tensor(latents, device=dev)
+    uncond = ([None] * mesh.size if ctx_uncond is None
+              else shard_batch(ctx_uncond, mesh))
+    outs = [denoise(components.replace_unet(unet), lat, cond, unc, **kw)
+            for unet, lat, cond, unc in zip(
+                replicate(components.unet, mesh),
+                shard_batch(latents, mesh), shard_batch(ctx_cond, mesh),
+                uncond)]
+    return gather(outs, dev)
 
 
 @torch.no_grad()
@@ -170,14 +194,24 @@ def denoise(components: SDComponents, latents, ctx_cond: torch.Tensor,
     return out.permute(0, 2, 3, 1).contiguous()
 
 
-@torch.no_grad()
-def decode_latents(components: SDComponents, latents) -> np.ndarray:
-    """Channel-last latents -> uint8 RGB images (B, H, W, 3) on the host."""
-    vae, sf = components.vae, components.scaling_factor
-    lat = torch.as_tensor(latents, device=components.device).float()
-    img = vae.decode((lat.permute(0, 3, 1, 2) / sf).to(components.dtype))
+def _decode_uint8(vae, lat: torch.Tensor, sf: float, dtype) -> torch.Tensor:
+    img = vae.decode((lat.permute(0, 3, 1, 2) / sf).to(dtype))
     img = torch.clamp(img.float() / 2 + 0.5, 0.0, 1.0)
-    img = torch.round(img * 255).to(torch.uint8).permute(0, 2, 3, 1)
+    return torch.round(img * 255).to(torch.uint8).permute(0, 2, 3, 1)
+
+
+@torch.no_grad()
+def decode_latents(components: SDComponents, latents,
+                   mesh=None) -> np.ndarray:
+    """Channel-last latents -> uint8 RGB images (B, H, W, 3) on the host;
+    with ``mesh`` the batch decodes sharded (the VAE replicated)."""
+    vae, sf, dtype = components.vae, components.scaling_factor, components.dtype
+    lat = torch.as_tensor(latents, device=components.device).float()
+    if mesh is None:
+        img = _decode_uint8(vae, lat, sf, dtype)
+    else:
+        img = gather([_decode_uint8(v, x, sf, dtype) for v, x in zip(
+            replicate(vae, mesh), shard_batch(lat, mesh))], lat.device)
     return img.cpu().numpy()
 
 
@@ -204,18 +238,25 @@ def generate(components: SDComponents, prompts: Sequence[str],
              mesh=None, **kwargs) -> np.ndarray:
     """Text -> uint8 images (B, H, W, 3), in chunks of ``batch_size``
     prompts (default: all; ``EMCID_TPU_GEN_BATCH`` caps it).  Each image
-    has its own seed, so the chunking does not change the images."""
-    if mesh is not None:
-        raise NotImplementedError("mesh= sharding (ROADMAP M14)")
+    has its own seed, so the chunking does not change the images.  With
+    ``mesh`` each chunk is padded to a multiple of the mesh (the padding's
+    images are dropped) and generated sharded."""
     prompts, seeds = list(prompts), list(seeds)
     n = len(prompts)
     if batch_size is None:
         env_bs = int(os.environ.get("EMCID_TPU_GEN_BATCH", "0") or 0)
         batch_size = min(env_bs, n) if env_bs else None
     bs = batch_size or n
+    if mesh is not None:
+        bs = pad_to_multiple(bs, mesh.size)
     images = []
     for i in range(0, n, bs):
-        lat = sample_latents(components, prompts[i:i + bs], seeds[i:i + bs],
+        chunk_p, chunk_s = prompts[i:i + bs], seeds[i:i + bs]
+        keep = len(chunk_p)
+        if mesh is not None:
+            pad = pad_to_multiple(keep, mesh.size) - keep
+            chunk_p, chunk_s = chunk_p + chunk_p[-1:] * pad, chunk_s + [0] * pad
+        lat = sample_latents(components, chunk_p, chunk_s, mesh=mesh,
                              **kwargs)
-        images.append(decode_latents(components, lat))
+        images.append(decode_latents(components, lat, mesh=mesh)[:keep])
     return np.concatenate(images, axis=0)

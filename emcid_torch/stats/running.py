@@ -472,11 +472,13 @@ def make_loader(dataset: Sequence, sample_size=None, random_sample=None,
     return batches()
 
 
-def tally(stat: Stat, dataset, cache=None, quiet=False, **kwargs):
+def tally(stat: Stat, dataset, cache=None, quiet=False, on_end=None,
+          **kwargs):
     """Stream a dataset through a Stat with npz caching.  Returns an
     iterable of batches: iterate it fully and the stat is moved to the host
-    and saved.  On a cache hit the stat is filled and the iterable is
-    empty."""
+    and saved (after ``on_end()``, when given, which may fill it from
+    per-shard accumulators).  On a cache hit the stat is filled and the
+    iterable is empty."""
     args = {k: kwargs[k] for k in ("sample_size",) if k in kwargs}
     cached_state = load_cached_state(cache, args, quiet=quiet)
     if cached_state is not None:
@@ -486,6 +488,8 @@ def tally(stat: Stat, dataset, cache=None, quiet=False, **kwargs):
 
     def wrapped_loader():
         yield from loader
+        if on_end is not None:
+            on_end()
         stat.to_("cpu")
         if cache is not None:
             save_cached_state(cache, stat, args)

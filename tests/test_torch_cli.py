@@ -186,8 +186,12 @@ def test_generate_batch_cap_keeps_images(pair, monkeypatch):
     monkeypatch.setenv("EMCID_TPU_GEN_BATCH", "2")
     capped = tpipe.generate(pc, prompts, seeds, **kw)
     assert np.abs(whole.astype(int) - capped.astype(int)).max() <= 1
-    with pytest.raises(NotImplementedError):
-        tpipe.generate(pc, prompts, seeds, mesh=object(), **kw)
+    # a two-entry mesh pads each capped chunk to a multiple of 2
+    from emcid_torch.parallel import get_mesh
+
+    sharded = tpipe.generate(pc, prompts, seeds, mesh=get_mesh(["cpu"] * 2),
+                             **kw)
+    assert np.abs(whole.astype(int) - sharded.astype(int)).max() <= 1
 
 
 REQUESTS = [

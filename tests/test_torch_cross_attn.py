@@ -168,9 +168,13 @@ def test_compute_z_unet_x_kv_rejects(pair):
         tca.compute_z_unet_x_kv(
             pc, REQS[0], _hp(thp, sld_supervision=True, sld_type="weak"),
             mean[0], logvar[0], verbose=False)
-    with pytest.raises(NotImplementedError, match="M14"):
-        tca.compute_z_unet_x_kv(pc, REQS[0], _hp(thp), mean[0], logvar[0],
-                                mesh=object(), verbose=False)
+    # a mesh does not lift the supervision check
+    from emcid_torch.parallel import get_mesh
+
+    with pytest.raises(ValueError, match="supervision"):
+        tca.compute_z_unet_x_kv(pc, REQS[0], _hp(thp, objective="ablate-dest"),
+                                mean[0], logvar[0],
+                                mesh=get_mesh(["cpu"] * 2), verbose=False)
 
 
 @pytest.mark.parametrize("per_layer", [False, True])

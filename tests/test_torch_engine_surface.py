@@ -282,8 +282,8 @@ def test_apply_emcid_to_text_encoder_matches_jax(pair, tmp_path):
 def test_resolve_covariances_matches_jax(pair, tmp_path):
     """``resolve_covariances(components, hparams)``: with no cache and no
     captions both fall back to the synthetic corpus (min(mom2_n_samples,
-    2000) captions) and agree at 1e-5 per layer; ``mesh=`` raises on the
-    port (ROADMAP M14)."""
+    2000) captions) and agree at 1e-5 per layer; on a two-entry mesh the
+    port's sweep agrees with its unsharded one at 1e-6."""
     import emcid_tpu.hparams as jhp
     from emcid_tpu.engine.editor import resolve_covariances as jresolve
     from emcid_tpu.engine.layer_stats import COV_CACHE
@@ -302,8 +302,12 @@ def test_resolve_covariances_matches_jax(pair, tmp_path):
     for a, b in zip(ref, got):
         assert tuple(b.shape) == (64, 64)
         assert rel_diff(a, b) <= 1e-5
-    with pytest.raises(NotImplementedError, match="M14"):
-        resolve_covariances(pc, _hparams(thp), mesh=object())
+    from emcid_torch.parallel import get_mesh
+
+    sharded = resolve_covariances(pc, _hparams(thp), stats_dir=tmp_path / "m",
+                                  mesh=get_mesh(["cpu"] * 2), verbose=False)
+    for a, b in zip(got, sharded):
+        assert rel_diff(a, b) <= 1e-6
 
 
 def test_workflows_layer_stats_tiny_cpu(pair, tmp_path, monkeypatch):

@@ -51,7 +51,7 @@ def test_port_modules_import_without_jax():
                                              lazy=set(LAZY))],
         cwd=REPO, capture_output=True, text=True, timeout=300, check=True)
     result = json.loads(out.stdout.strip().splitlines()[-1])
-    assert len(result["modules"]) >= 75, result["modules"]
+    assert len(result["modules"]) >= 80, result["modules"]
     assert {"emcid_torch.cli", "emcid_torch.cli.run_emcid",
             "emcid_torch.ops.groupnorm", "emcid_torch.ops.layernorm",
             "emcid_torch.engine.fim", "emcid_torch.engine.compute_z_variants",
@@ -84,6 +84,11 @@ def test_port_modules_import_without_jax():
             "emcid_torch.experiments.sequential",
             "emcid_torch.experiments.ablation",
             "emcid_torch.models.convert_openclip", "emcid_torch.cli.validate",
+            # the deviation-guard harness, lever certification, the visual
+            # examples and the single-process device mesh
+            "emcid_torch.evals.deviation_harness",
+            "emcid_torch.evals.lever_cert", "emcid_torch.cli.visual_examples",
+            "emcid_torch.parallel", "emcid_torch.parallel.mesh",
             } <= set(result["modules"])
     assert result["forbidden"] == []
     assert result["lazy"] == []
@@ -147,6 +152,11 @@ REEXPORTS = {
             "calculate_hidden_flow_text_encoder", "collect_embedding_std",
             "layername_text_encoder", "trace_important_states",
             "trace_with_patch_text_encoder")},
+    "emcid_torch.parallel": {
+        n: f"emcid_torch.parallel.mesh:{n}" for n in (
+            "DeviceMesh", "default_mesh", "gather", "get_mesh",
+            "multi_slice_mesh", "pad_to_multiple", "replicate",
+            "shard_batch")},
     "emcid_torch.experiments": {
         "sequential_editing": "emcid_torch.experiments.sequential:"
                               "sequential_editing",

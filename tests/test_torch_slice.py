@@ -247,14 +247,21 @@ def test_variant_branches_run(pair, tmp_path, change):
 
 
 def test_unsupported_branches_raise(pair):
-    """What still waits raises: ``mesh=`` sharding (ROADMAP M14)."""
+    """What still waits raises: the multi-process mesh (ROADMAP M14b).  A
+    single-process mesh is accepted, and an objective the port has no loss
+    for still raises under it."""
+    import dataclasses
+
     import emcid_torch.hparams as thp
     from emcid_torch.engine.editor import apply_emcid, compute_zs_for_requests
+    from emcid_torch.parallel import get_mesh, multi_slice_mesh
 
     _, pc = pair
-    hp = _hparams(thp)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        apply_emcid(pc, REQUESTS, hp, mesh=object(), verbose=False)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        compute_zs_for_requests(pc, REQUESTS, hp, mesh=object(),
-                                verbose=False)
+    mesh = get_mesh(["cpu"] * 2)
+    hp = dataclasses.replace(_hparams(thp), objective="contrastive")
+    with pytest.raises(NotImplementedError, match="M14b"):
+        multi_slice_mesh()
+    with pytest.raises(ValueError, match="objective"):
+        apply_emcid(pc, REQUESTS, hp, mesh=mesh, verbose=False)
+    with pytest.raises(ValueError, match="objective"):
+        compute_zs_for_requests(pc, REQUESTS, hp, mesh=mesh, verbose=False)

@@ -692,8 +692,9 @@ def test_variant_hparams_pass_check_supported():
                  {"objective": "esd", "esd_mu": 1.0},
                  {"txt_img_align_scale_factor": 0.1}):
         check_supported(_hparams(thp, **over))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        check_supported(_hparams(thp), mesh=object())
+    from emcid_torch.parallel import get_mesh
+
+    check_supported(_hparams(thp), mesh=get_mesh(["cpu"] * 2))
     with pytest.raises(ValueError, match="metric"):
         check_supported(_hparams(thp, txt_img_align_scale_factor=0.1,
                                  txt_img_align_loss_metric="kl"))

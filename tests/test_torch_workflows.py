@@ -161,17 +161,16 @@ def test_default_platform_wants_the_card(tree, tmp_path, cmd):
         workflows.main(_argv(tree, tmp_path, cmd, platform=None))
 
 
-# the subcommands that waited for a later slice before the causal-tracing
-# slice; only certify_levers still waits
+# the subcommands that waited for a later slice; none waits now
 FORMERLY_WAITING = ["certify_levers", "plots", "sequential", "validate",
                     "validate_openclip"]
 
 
 @pytest.mark.parametrize("cmd", FORMERLY_WAITING)
 def test_other_subcommands_name_their_roadmap_item(tree, tmp_path, cmd):
-    """A subcommand still in ``WAITING`` raises ``NotImplementedError``
-    naming its ROADMAP item; the others reach their own code (a figure
-    written, or their own error for the missing input)."""
+    """Every formerly waiting subcommand reaches its own code (a figure
+    written, or its own error for the missing input), and the module keeps
+    no list of waiting subcommands."""
     argv = [cmd]
     if cmd == "plots":
         pytest.importorskip("matplotlib")
@@ -179,13 +178,10 @@ def test_other_subcommands_name_their_roadmap_item(tree, tmp_path, cmd):
     elif cmd == "validate_openclip":
         argv += ["--checkpoint", str(tmp_path / "c.pt"),
                  "--goldens", "g.npz", "--platform", "cpu"]
-    elif cmd in ("sequential", "validate"):  # no model source
+    elif cmd in ("certify_levers", "sequential", "validate"):  # no source
         argv += ["--hparam", HP, "--hparams_dir", str(tree / "hparams"),
                  "--platform", "cpu"]
-    if cmd in workflows.WAITING:
-        with pytest.raises(NotImplementedError, match="ROADMAP M13"):
-            workflows.main(argv)
-    elif cmd == "plots":
+    if cmd == "plots":
         assert workflows.main(argv) == tmp_path / "f.png"
         assert (tmp_path / "f.png").exists()
     elif cmd == "validate_openclip":
@@ -194,7 +190,7 @@ def test_other_subcommands_name_their_roadmap_item(tree, tmp_path, cmd):
     else:
         with pytest.raises(SystemExit, match="--tiny"):
             workflows.main(argv)
-    assert set(workflows.WAITING) == {"certify_levers"}
+    assert not hasattr(workflows, "WAITING")
 
 
 def test_scorer_checkpoints_load(tmp_path, monkeypatch):
