@@ -4,6 +4,9 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only   # phases 1-2, no device line
 
+(``--dcn-worker SPEC`` is one rank of phase 7f, which the script starts
+itself under ``python -m torch.distributed.run``.)
+
 Phases, each printing one JSON line:
 
 1. device: the card, its power limit, the kernel build time;
@@ -143,6 +146,20 @@ Phases, each printing one JSON line:
    to 4) at 384 px in exact f32 (z within 1e-4), (c) the covariance of 2000 captions in f32 (1e-6) and a Stage-2
    solve on it against float64; per run its seconds and launches beside
    its unsharded twin's;
+7f. the multi-process ``dcn`` mesh (``dcn_path``) on the same folder:
+   ranks started with ``python -m torch.distributed.run``, one per card
+   over NCCL with two or more cards, else two sharing ``cuda:0`` over gloo
+   (the setup row names the layout and backend, and which gloo
+   collectives take CUDA tensors; on one card the collective helper also
+   runs once under NCCL in a group of one); against one-process twins
+   (a) ``apply_emcid`` with the main path's 4 concepts x 3 prompts, 5
+   Stage-1 steps, at 384 px in exact f32 (z 1e-4, the layer-10 covariance
+   1e-6, each rank's Stage-2 solves 1e-3 of float64, z, covariance and
+   edited fc2 weights bit for bit the same in every rank), (b) 6 prompts
+   at 512 px, PNDM-10 (f32 images 1e-3; bf16 gap reported), (c)
+   ``run_emcid`` in bf16 with both knobs at 1 under the group (only rank 0
+   writes; z within 5e-2 of the CLI path's); per run every
+   rank's seconds, peak memory and launches per kernel and route;
 8. SDXL at full width (CLIP-L, OpenCLIP bigG, the 2.6B text_time UNet and
    the SDXL VAE, 3.47B parameters, random bf16 weights from seed 0) at
    1024 px: the UNet with attention through the kernels against the plain
@@ -168,8 +185,9 @@ path's runs (a) and (c), from the preservation path's COCO run
 (``preservation_launches``) and TIMED run (``refact_launches``), and from
 the trace path's sweep (``trace_launches``) and finetuning run
 (``finetune_launches``), from the certification path's ``certify_levers``
-run (``cert_launches``) and its visual examples (``visual_launches``), and
-from the mesh path's sharded runs (``mesh_launches``)), the card's name
+run (``cert_launches``) and its visual examples (``visual_launches``),
+from the mesh path's sharded runs (``mesh_launches``) and from the dcn
+path's runs summed over its ranks (``dcn_launches``)), the card's name
 and power limit, and, last, the device line the harness reads.
 Exits non-zero, and prints no result, when there is no CUDA device, when
 the port cannot be imported, or when any phase fails.
@@ -1694,23 +1712,10 @@ def write_checkpoint(torch, tmp: Path):
     return tmp / "ckpt", tokenizer, before, write_s, ckpt_gb
 
 
-def cli_path(torch, tmp: Path, ckpt, failures):
-    """``python -m emcid_torch.cli.run_emcid`` in-process with
-    EMCID_TPU_FUSED_GN=1 and EMCID_TPU_FUSED_LN=1, on the local HF-format
-    folder of ``write_checkpoint`` (loaded in bf16): the 4 concepts of the
-    main path, the bench hparams, 2 val prompts x 1 sample at 512 px, DPM++
-    at 10 steps.  Returns the launch count of every kernel during the CLI
-    run."""
-    import numpy as np
-    from PIL import Image
-
-    from emcid_torch.cli import run_emcid
-    from emcid_torch.engine.emcid import load_z_list
-    from emcid_torch.ops import _build
-
-    ckpt_dir, _, before, write_s, ckpt_gb = ckpt
-    tmp = tmp / "cli"
-    hp = bench_hparams(50)
+def cli_inputs(tmp: Path, ckpt_dir, hp):
+    """The CLI path's instruction (the 4 concepts, 2 val prompts x 1
+    sample) and command line under ``tmp``: (argv, hparams name, out
+    dir)."""
     (tmp / "hparams").mkdir(parents=True)
     name = hp.to_json(tmp / "hparams").stem
     out_dir = tmp / "out"
@@ -1723,6 +1728,36 @@ def cli_path(torch, tmp: Path, ckpt, failures):
             "--stats_dir", str(tmp / "stats"),
             "--cache_dir", str(tmp / "z"),
             "--sampler", "dpm++", "--steps", "10", "--seed", "0"]
+    return argv, name, out_dir
+
+
+def fc2_updates(torch, text_encoder, before, layers) -> dict:
+    """The edit layers' fc2 weights minus ``before``'s, f32 on the host."""
+    state = text_encoder.state_dict()
+    return {k: (state[k].float() - before[k].float()).cpu()
+            for k in (f"text_model.encoder.layers.{i}.mlp.fc2.weight"
+                      for i in layers)}
+
+
+def cli_path(torch, tmp: Path, ckpt, failures):
+    """``python -m emcid_torch.cli.run_emcid`` in-process with
+    EMCID_TPU_FUSED_GN=1 and EMCID_TPU_FUSED_LN=1, on the local HF-format
+    folder of ``write_checkpoint`` (loaded in bf16): the 4 concepts of the
+    main path, the bench hparams, 2 val prompts x 1 sample at 512 px, DPM++
+    at 10 steps.  Returns the launch count of every kernel (and route)
+    during the CLI run, and its edit's fc2 updates and images (the dcn
+    path's one-process twin)."""
+    import numpy as np
+    from PIL import Image
+
+    from emcid_torch.cli import run_emcid
+    from emcid_torch.engine.emcid import load_z_list
+    from emcid_torch.ops import _build
+
+    ckpt_dir, _, before, write_s, ckpt_gb = ckpt
+    tmp = tmp / "cli"
+    hp = bench_hparams(50)
+    argv, name, out_dir = cli_inputs(tmp, ckpt_dir, hp)
     timings = {}
     with environ(EMCID_TPU_FUSED_GN="1", EMCID_TPU_FUSED_LN="1"):
         torch.cuda.reset_peak_memory_stats()
@@ -1772,9 +1807,13 @@ def cli_path(torch, tmp: Path, ckpt, failures):
     emit(row)
     if not row["ok"]:
         failures.append(f"CLI path: {row}")
+    # the dcn path's twin: this one-process run's edit and images
+    twin = dict(seconds=total_s, updates=fc2_updates(
+        torch, edited.text_encoder, before, hp.layers), images=images,
+        z=np.stack(z_list), peak_mem_gb=peak_gb)
     del edited
     torch.cuda.empty_cache()
-    return launches, routes
+    return launches, routes, twin
 
 
 # ---------------------------------------------------------------------------
@@ -3569,6 +3608,484 @@ def mesh_path(torch, tmp: Path, ckpt, failures):
 
 
 # ---------------------------------------------------------------------------
+# the multi-process dcn mesh (M14b): ranks under torch.distributed.run
+# ---------------------------------------------------------------------------
+
+# Stage-1 steps of run (a): the main path's 50 (30 run under its cosine
+# schedule) cut to 5 (const) for time, in exact f32, as the mesh path's
+DCN_GRAD_STEPS = 5
+# run (c), the CLI in bf16: its z against the one-process CLI path's,
+# relative to the largest entry (the bf16 model checks' tolerance).  The
+# fc2 updates are reported: Stage 2 amplifies z's differences (in exact
+# f32, run (a) of the first chip run: z 1.8e-5 apart, updates 4.5e-3)
+DCN_BF16_TOL = 5e-2
+DCN_TIMEOUT_S = 900
+
+
+def sha(torch, t) -> str:
+    """A tensor's bytes, hashed (equal hashes: the same bits)."""
+    import hashlib
+
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()
+                          ).hexdigest()[:16]
+
+
+def dcn_layout(torch):
+    """(ranks, backend, reason): one rank per card over NCCL with two or
+    more cards, else two ranks sharing ``cuda:0`` over gloo."""
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return n, "nccl", f"{n} ranks, one card each"
+    return 2, "gloo", ("2 ranks share cuda:0 (one card: a check of the "
+                       "cross-process code, not a multi-card speed figure)")
+
+
+def gloo_cuda_probe(torch, dev) -> dict:
+    """Which gloo collectives take CUDA tensors as they are (the port's
+    ``all_gather`` stages through the host either way): each one called
+    once on a CUDA tensor in every rank, its error recorded.  Every rank
+    calls the same collectives in the same order."""
+    import torch.distributed as dist
+
+    world, out = dist.get_world_size(), {}
+    calls = (("all_gather", lambda t: dist.all_gather(
+        [torch.empty_like(t) for _ in range(world)], t)),
+             ("all_reduce", dist.all_reduce),
+             ("broadcast", lambda t: dist.broadcast(t, 0)))
+    for name, fn in calls:
+        try:
+            fn(torch.ones(4, device=dev))
+            torch.cuda.synchronize(dev)
+            out[name] = "takes CUDA tensors"
+        except (RuntimeError, ValueError, TypeError,
+                NotImplementedError) as e:
+            out[name] = f"{type(e).__name__}: {str(e)[:160]}"
+    return out
+
+
+def dcn_worker(spec_path: str) -> int:
+    """One rank of the dcn path (``chip_smoke.py --dcn-worker SPEC`` under
+    ``torch.distributed.run``): runs (a)-(c) of ``dcn_path`` on its own
+    card, and writes its results (rank 0 also the arrays the parent holds
+    against the twins) under the spec's directory."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from emcid_torch.cli import run_emcid
+    from emcid_torch.engine import editor
+    from emcid_torch.engine import emcid as emcid_mod
+    from emcid_torch.models.loader import load_pipeline
+    from emcid_torch.models.pipeline import generate, sample_latents
+    from emcid_torch.ops import _build
+    from emcid_torch.parallel import default_mesh, distributed, pad_to_multiple
+    from emcid_torch.runtime import precise_matmuls
+
+    spec = json.loads(Path(spec_path).read_text())
+    work = Path(spec["work"])
+    backend = distributed.init_from_env("cuda")
+    rank = distributed.process_index()
+    dev = distributed.local_device()
+    _build.lib()
+    out = dict(rank=rank, world=distributed.process_count(),
+               backend=backend, device=str(dev),
+               probe=(gloo_cuda_probe(torch, dev) if backend == "gloo"
+                      else None))
+    mesh = default_mesh()
+    out.update(mesh_axes=list(mesh.axis_names), mesh_shape=list(mesh.shape),
+               first=mesh.first)
+    keep = rank == 0  # rank 0 saves the arrays the parent compares
+
+    @contextlib.contextmanager
+    def run(label, knobs):
+        row = dict(run=label)
+        with environ(**knobs):
+            _build.reset_launches()
+            torch.cuda.reset_peak_memory_stats(dev)
+            distributed.barrier()
+            t0 = time.time()
+            yield row
+            torch.cuda.synchronize(dev)
+            distributed.barrier()
+            row.update(seconds=time.time() - t0,
+                       launches=dict(_build.LAUNCHES),
+                       routes=copy.deepcopy(_build.ROUTES),
+                       peak_mem_gb=torch.cuda.max_memory_allocated(dev)
+                       / 2 ** 30)
+        out[label] = row
+
+    # (a) apply_emcid, exact f32
+    comps = load_pipeline(spec["ckpt"], dtype=torch.float32, device=dev)
+    hp = bench_hparams(DCN_GRAD_STEPS)
+    zs, covs, solves = [], [], []
+    with precise_matmuls(), spy(editor, "compute_zs_for_requests", zs), \
+            spy(editor, "resolve_covariances_for", covs), \
+            spy(emcid_mod, "solve_adj_k", solves), \
+            run("a_apply_emcid_f32", dict.fromkeys(KNOBS)) as row:
+        edited, _ = editor.apply_emcid(
+            comps, REQUESTS, hp, stats_dir=work / "a_stats",
+            cache_name=f"{work / 'a_z'}/", num_inference_steps=10,
+            mesh=mesh, verbose=False)
+    z = zs[0]["call"][2]
+    cov = covs[0]["call"][2][-1]
+    before = dict(comps.text_encoder.named_parameters())
+    changed = sorted(k for k, v in edited.text_encoder.named_parameters()
+                     if not torch.equal(v, before[k]))
+    upd = fc2_updates(torch, edited.text_encoder, before, hp.layers)
+    row.update(z_sha=sha(torch, torch.as_tensor(z)), cov_sha=sha(torch, cov),
+               fc2_sha={k: sha(torch, v) for k, v in upd.items()},
+               changed_params=changed,
+               solves_vs_f64=solves_vs_f64(solves))
+    if keep:
+        np.save(work / "a_z.npy", np.asarray(z))
+        np.save(work / "a_cov.npy", cov.cpu().numpy())
+        torch.save(upd, work / "a_updates.pt")
+    del edited, zs, covs, solves
+
+    # (b) generation: the padded batch's latents in exact f32, decoded in
+    # f32; then generate() in bf16
+    seeds = list(range(len(MESH_PROMPTS)))
+    n_pad = pad_to_multiple(len(MESH_PROMPTS), mesh.size)
+    padded = (MESH_PROMPTS + MESH_PROMPTS[-1:] * (n_pad - len(seeds)),
+              seeds + [0] * (n_pad - len(seeds)))
+    gen_kw = dict(num_inference_steps=10, height=512, width=512,
+                  sampler="pndm")
+    with precise_matmuls(), run("b_generate_f32", dict.fromkeys(KNOBS)) as row:
+        lat = sample_latents(comps, *padded, mesh=mesh, **gen_kw)
+        with torch.no_grad():
+            img = comps.vae.decode((lat.permute(0, 3, 1, 2)
+                                    / comps.scaling_factor))
+        img = torch.clamp(img.float() / 2 + 0.5, 0, 1)
+    row.update(images=n_pad, images_sha=sha(torch, img))
+    if keep:
+        np.save(work / "b_images.npy", img.cpu().numpy())
+    del comps, lat, img
+    torch.cuda.empty_cache()
+    comps = load_pipeline(spec["ckpt"], device=dev)
+    with run("b_generate_bf16", dict.fromkeys(KNOBS)) as row:
+        images = generate(comps, MESH_PROMPTS, seeds, mesh=mesh, **gen_kw)
+    row.update(images_sha=sha(torch, torch.as_tensor(images)))
+    if keep:
+        np.save(work / "b_images_bf16.npy", images)
+    del comps
+    torch.cuda.empty_cache()
+
+    # (c) the CLI, in bf16 with both norm knobs at 1, every write counted
+    writes, zs = [], []
+    savez, img_save = np.savez, Image.Image.save
+
+    def counted(fn, kind):
+        def wrapper(*a, **k):
+            writes.append(kind)
+            return fn(*a, **k)
+        return wrapper
+
+    np.savez, Image.Image.save = counted(savez, "npz"), counted(img_save,
+                                                                "png")
+    try:
+        with spy(editor, "compute_zs_for_requests", zs), \
+                run("c_cli_bf16", dict(EMCID_TPU_FUSED_GN="1",
+                                       EMCID_TPU_FUSED_LN="1")) as row:
+            edited, _ = run_emcid.main(spec["cli_argv"])
+    finally:
+        np.savez, Image.Image.save = savez, img_save
+    z = np.asarray(zs[0]["call"][2])
+    state = edited.text_encoder.state_dict()
+    fc2 = {k: state[k].float().cpu() for k in state
+           if k.endswith("mlp.fc2.weight")}
+    row.update(files_written=len(writes), z_sha=sha(torch, torch.as_tensor(z)),
+               fc2_sha={k: sha(torch, v) for k, v in fc2.items()})
+    if keep:
+        np.save(work / "c_z.npy", z)
+        torch.save(fc2, work / "c_fc2.pt")
+    del edited, state
+    (work / f"rank{rank}.json").write_text(json.dumps(out))
+    distributed.shutdown()
+    return 0
+
+
+def nccl_world_one(torch) -> dict:
+    """The collective helper once under NCCL in a group of one process (on
+    one card the ranks share it over gloo, so this is where the NCCL
+    branch runs)."""
+    import socket
+
+    from emcid_torch.parallel import distributed
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    with environ(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                 LOCAL_WORLD_SIZE="1", MASTER_ADDR="localhost",
+                 MASTER_PORT=str(port)):
+        backend = distributed.init_from_env("cuda")
+        try:
+            x = torch.arange(6.0, device="cuda").reshape(3, 2)
+            y = distributed.all_gather(x)
+            distributed.barrier()
+            same = bool(torch.equal(x, y))
+        finally:
+            distributed.shutdown()
+    return dict(backend=backend, all_gather_equal=same)
+
+
+def dcn_path(torch, tmp: Path, ckpt, cli_twin, failures):
+    """``emcid_torch.parallel``'s ``dcn`` axis: ranks started with
+    ``python -m torch.distributed.run`` (``dcn_worker``), one per card over
+    NCCL with two or more cards, else two on ``cuda:0`` over gloo (a check
+    of the cross-process code, no speed figure), on the folder of
+    ``write_checkpoint``; each run against its one-process unsharded twin:
+
+    (a) ``apply_emcid``, the main path's 4 concepts x 3 prompts and
+        bench hparams (``DCN_GRAD_STEPS`` Stage-1 steps) at 384 px in exact
+        f32 (TF32 off): z within ``MESH_Z_TOL``, the layer-10 covariance
+        within ``MESH_COV_TOL``, every Stage-2 solve of every rank within
+        ``SOLVE_REL_TOL`` of float64, z, the covariance and the edited fc2
+        weights bit for bit the same in every rank, only those weights
+        changed;
+    (b) 6 prompts at 512 px, PNDM-10, padded to a multiple of the ranks:
+        the latents in exact f32 decoded in [0, 1] within
+        ``MESH_IMAGE_TOL``; ``generate`` in bf16 (the uint8 gap reported);
+    (c) ``run_emcid`` under the group on the folder in bf16 with both norm
+        knobs at 1 (the CLI path's command with its own output, covariance
+        and z directories): only rank 0 wrote files, z and the edited fc2
+        weights the same bits in every rank, z within ``DCN_BF16_TOL`` of
+        the CLI path's (its one-process twin), the fc2 updates' and the
+        images' gaps to the CLI path's reported.
+
+    Per run: seconds beside the twin's, peak memory and launches of every
+    kernel and route per rank; K1-K4 launched in every rank of (a) and
+    (c), on their tensor-core routes with no ``fma`` in (c) and K1/K4 in
+    (b)'s bf16 run.  On one card the helper also runs once under NCCL in
+    a group of one.  Returns the runs' launches, summed over ranks."""
+    import subprocess as sp
+
+    import numpy as np
+
+    from emcid_torch.engine import editor
+    from emcid_torch.models.loader import load_pipeline
+    from emcid_torch.models.pipeline import generate, sample_latents
+    from emcid_torch.parallel import pad_to_multiple
+    from emcid_torch.runtime import precise_matmuls
+
+    ranks, backend, layout = dcn_layout(torch)
+    work = tmp / "dcn"
+    work.mkdir()
+    emit(dict(phase="dcn_path_setup", cards=torch.cuda.device_count(),
+              ranks=ranks, backend=backend, layout=layout))
+    rows, twins = [], {}
+    finish = functools.partial(finish_run, rows, failures)
+
+    # the one-process twins of (a) and (b)
+    comps = load_pipeline(ckpt[0], dtype=torch.float32, device="cuda")
+    hp = bench_hparams(DCN_GRAD_STEPS)
+    zs, covs = [], []
+    with precise_matmuls(), spy(editor, "compute_zs_for_requests", zs), \
+            spy(editor, "resolve_covariances_for", covs), \
+            measured(torch, "dcn_path", "a_twin", "apply_emcid",
+                     dict.fromkeys(KNOBS), []) as row:
+        edited, _ = editor.apply_emcid(
+            comps, REQUESTS, hp, stats_dir=work / "twin_stats",
+            cache_name=f"{work / 'twin_z'}/", num_inference_steps=10,
+            verbose=False)
+    before = dict(comps.text_encoder.named_parameters())
+    twins["a"] = dict(z=np.asarray(zs[0]["call"][2]),
+                      cov=covs[0]["call"][2][-1].cpu(),
+                      updates=fc2_updates(torch, edited.text_encoder, before,
+                                          hp.layers), row=row)
+    del edited, zs, covs
+    seeds = list(range(len(MESH_PROMPTS)))
+    n_pad = pad_to_multiple(len(MESH_PROMPTS), ranks)
+    padded = (MESH_PROMPTS + MESH_PROMPTS[-1:] * (n_pad - len(seeds)),
+              seeds + [0] * (n_pad - len(seeds)))
+    gen_kw = dict(num_inference_steps=10, height=512, width=512,
+                  sampler="pndm")
+    with precise_matmuls(), measured(torch, "dcn_path", "b_twin_f32",
+                                     "sample_latents", dict.fromkeys(KNOBS),
+                                     []) as row:
+        lat = sample_latents(comps, *padded, **gen_kw)
+        with torch.no_grad():
+            img = comps.vae.decode(lat.permute(0, 3, 1, 2)
+                                   / comps.scaling_factor)
+        img = torch.clamp(img.float() / 2 + 0.5, 0, 1).cpu().numpy()
+    twins["b"] = dict(images=img, row=row)
+    del comps, lat
+    torch.cuda.empty_cache()
+    comps = load_pipeline(ckpt[0], device="cuda")
+    with measured(torch, "dcn_path", "b_twin_bf16", "generate",
+                  dict.fromkeys(KNOBS), []) as row:
+        twins["b_bf16"] = dict(images=generate(comps, MESH_PROMPTS, seeds,
+                                               **gen_kw), row=row)
+    del comps
+    torch.cuda.empty_cache()
+
+    # the ranks
+    spec = work / "spec.json"
+    cli_argv, _, shared_out = cli_inputs(work / "c", ckpt[0],
+                                         bench_hparams(50))
+    spec.write_text(json.dumps(dict(ckpt=str(ckpt[0]), work=str(work),
+                                    cli_argv=cli_argv)))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={ranks}", str(REPO / "chip_smoke.py"),
+           "--dcn-worker", str(spec)]
+    log = work / "ranks.log"
+    t0 = time.time()
+    with open(log, "w") as f:
+        proc = sp.Popen(cmd, stdout=f, stderr=sp.STDOUT, cwd=REPO,
+                        start_new_session=True)
+        try:
+            code = proc.wait(timeout=DCN_TIMEOUT_S)
+        except sp.TimeoutExpired:
+            # the launcher stops its ranks on SIGTERM; then its group goes
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            finally:
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(proc.pid, 9)
+                proc.wait()
+            code = "timeout"
+    wall = time.time() - t0
+    results = [json.loads((work / f"rank{r}.json").read_text())
+               for r in range(ranks) if (work / f"rank{r}.json").exists()]
+    emit(dict(phase="dcn_path_ranks", command=" ".join(
+        ["python -m torch.distributed.run", f"--nproc-per-node={ranks}",
+         "chip_smoke.py --dcn-worker SPEC"]), exit=code, seconds=wall,
+        results=len(results)))
+    if code != 0 or len(results) != ranks:
+        tail = log.read_text()[-6000:]
+        print(tail, file=sys.stderr)
+        failures.append(f"dcn path: the ranks exited {code} with "
+                        f"{len(results)} of {ranks} results")
+        return []
+    setup = dict(phase="dcn_path", run="setup", ranks=ranks, layout=layout,
+                 backend=[r["backend"] for r in results],
+                 devices=[r["device"] for r in results],
+                 mesh_axes=results[0]["mesh_axes"],
+                 mesh_shape=results[0]["mesh_shape"],
+                 firsts=[r["first"] for r in results],
+                 gloo_cuda_tensors=results[0]["probe"])
+    checks = dict(backend_ok=all(r["backend"] == backend for r in results),
+                  mesh_ok=all(r["mesh_shape"] == [ranks, 1]
+                              and r["mesh_axes"] == ["dcn", "data"]
+                              and r["first"] == r["rank"] for r in results))
+    if torch.cuda.device_count() < 2:
+        setup["nccl_world_1"] = nccl_world_one(torch)
+        checks["nccl_ok"] = (setup["nccl_world_1"]["backend"] == "nccl"
+                             and setup["nccl_world_1"]["all_gather_equal"])
+    finish(setup, checks)
+
+    def per_rank(label, twin_row, **extra):
+        """The run's row: every rank's seconds, peak memory and launches
+        beside the twin's."""
+        runs = [r[label] for r in results]
+        row = dict(phase="dcn_path", run=label, ranks=ranks, layout=layout,
+                   seconds=[x["seconds"] for x in runs],
+                   peak_mem_gb=[x["peak_mem_gb"] for x in runs],
+                   launches=[x["launches"] for x in runs],
+                   routes=[x["routes"] for x in runs], **extra)
+        if twin_row is not None:
+            row.update(twin_seconds=twin_row["seconds"],
+                       twin_peak_mem_gb=twin_row["peak_mem_gb"])
+        return row, runs
+
+    def rel(ref, got):
+        ref = np.asarray(ref, np.float64)
+        got = np.asarray(got, np.float64)
+        return float(np.abs(ref - got).max() / np.abs(ref).max())
+
+    def updates_rel(ref, got):
+        return max(rel(ref[k].numpy(), got[k].numpy()) for k in ref)
+
+    # (a)
+    row, runs = per_rank("a_apply_emcid_f32", twins["a"]["row"],
+                         concepts=len(REQUESTS), prompts=3,
+                         grad_steps=DCN_GRAD_STEPS, train_res=384)
+    z = np.load(work / "a_z.npy")
+    cov = np.load(work / "a_cov.npy")
+    expect = sorted(f"text_model.encoder.layers.{i}.mlp.fc2.weight"
+                    for i in hp.layers)
+    row.update(z_rel_diff=rel(twins["a"]["z"], z),
+               cov_rel_diff=rel(twins["a"]["cov"].numpy(), cov),
+               fc2_update_rel_diff=updates_rel(
+                   twins["a"]["updates"], torch.load(work / "a_updates.pt")),
+               solves_vs_f64=[x["solves_vs_f64"] for x in runs])
+    finish(row, dict(
+        z_tolerance=MESH_Z_TOL, z_ok=row["z_rel_diff"] <= MESH_Z_TOL,
+        cov_tolerance=MESH_COV_TOL,
+        cov_ok=row["cov_rel_diff"] <= MESH_COV_TOL,
+        solve_rel_tolerance=SOLVE_REL_TOL,
+        solves_ok=all(x <= SOLVE_REL_TOL for x in row["solves_vs_f64"]),
+        same_bits_ok=all(x[k] == runs[0][k] for x in runs
+                         for k in ("z_sha", "cov_sha", "fc2_sha")),
+        only_fc2_ok=all(x["changed_params"] == expect for x in runs),
+        finite_ok=bool(np.isfinite(z).all() and np.isfinite(cov).all()),
+        kernels_ok=all(x["launches"][k] > 0 for x in runs
+                       for k in ATTENTION)))
+    launch_runs = list(runs)
+
+    # (b)
+    row, runs = per_rank("b_generate_f32", twins["b"]["row"], images=n_pad)
+    img = np.load(work / "b_images.npy")
+    gap = float(np.abs(twins["b"]["images"] - img).max())
+    row.update(image_max_abs_diff=gap)
+    finish(row, dict(image_tolerance=MESH_IMAGE_TOL,
+                     images_ok=gap <= MESH_IMAGE_TOL,
+                     same_bits_ok=all(x["images_sha"] == runs[0]["images_sha"]
+                                      for x in runs)))
+    row, runs = per_rank("b_generate_bf16", twins["b_bf16"]["row"],
+                         images=len(seeds))
+    got = np.load(work / "b_images_bf16.npy")
+    row.update(uint8_max_level_diff=int(np.abs(
+        twins["b_bf16"]["images"].astype(int) - got.astype(int)).max()))
+    finish(row, dict(
+        shape_ok=got.shape == (len(seeds), 512, 512, 3),
+        same_bits_ok=all(x["images_sha"] == runs[0]["images_sha"]
+                         for x in runs),
+        bf16_routes_ok=all(routes_ok(x["routes"], {
+            k: BF16_ROUTES[k] for k in ("K1 flash_v2_fwd", "K4 short_kv_fwd")})
+            for x in runs)))
+    launch_runs += runs
+
+    # (c)
+    row, runs = per_rank("c_cli_bf16", None, twin="the CLI path's run",
+                         EMCID_TPU_FUSED_GN="1", EMCID_TPU_FUSED_LN="1")
+    row.update(twin_seconds=cli_twin["seconds"],
+               twin_peak_mem_gb=cli_twin["peak_mem_gb"],
+               files_written=[x["files_written"] for x in runs])
+    from PIL import Image
+
+    images = {phase: [np.asarray(Image.open(f)) for f in
+                      sorted((shared_out / phase).glob("*.png"))]
+              for phase in ("pre_edit", "post_edit")}
+    gaps = [int(np.abs(a.astype(int) - b.astype(int)).max())
+            for phase in images
+            for a, b in zip(images[phase], cli_twin["images"][phase])]
+    fc2 = torch.load(work / "c_fc2.pt")
+    before = ckpt[2]
+    z = np.load(work / "c_z.npy")
+    row.update(z_rel_diff=rel(cli_twin["z"], z),
+               fc2_update_rel_diff=updates_rel(cli_twin["updates"], {
+                   k: fc2[k] - before[k].float().cpu()
+                   for k in cli_twin["updates"]}),
+               image_uint8_max_level_diff=gaps)
+    finish(row, dict(
+        z_tolerance=DCN_BF16_TOL, z_ok=row["z_rel_diff"] <= DCN_BF16_TOL,
+        finite_ok=bool(np.isfinite(z).all()),
+        rank0_only_wrote_ok=(runs[0]["files_written"] > 0 and all(
+            x["files_written"] == 0 for x in runs[1:])),
+        images_ok=all(len(images[p]) == len(VAL_PROMPTS)
+                      and len(cli_twin["images"][p]) == len(VAL_PROMPTS)
+                      for p in images),
+        same_bits_ok=all(x[k] == runs[0][k] for x in runs
+                         for k in ("z_sha", "fc2_sha")),
+        bf16_routes_ok=all(routes_ok(x["routes"]) for x in runs),
+        kernels_ok=all(x["launches"][k] > 0 for x in runs
+                       for k in ATTENTION)))
+    return launch_runs + runs
+
+
+# ---------------------------------------------------------------------------
 # SDXL (full width, 1024 px): the model checks, the CLI's SDXL leg, one
 # profiled Stage-1 step and the cached second call
 # ---------------------------------------------------------------------------
@@ -3956,7 +4473,7 @@ def summed(runs) -> dict:
 
 def kernel_table(rows, launches, routes, eval_run, sdxl_run, xkv_run,
                  region_run, preservation_run, refact_run, trace_run,
-                 finetune_run, cert_run, visual_runs, mesh_runs):
+                 finetune_run, cert_run, visual_runs, mesh_runs, dcn_runs):
     """One entry per kernel: the product-shape bf16 measurement of the
     first shape the main paths give it, and its launches (per route, where
     it has several) in the run that ``launches`` and ``routes`` count (the
@@ -3969,8 +4486,10 @@ def kernel_table(rows, launches, routes, eval_run, sdxl_run, xkv_run,
     trace path's sweep ``trace_run`` (run (a), knobs off) and finetuning
     run ``finetune_run`` (run (b), both knobs at 1), in the certification
     path's ``certify_levers`` run ``cert_run`` (both knobs at 1), its five
-    visual-example runs ``visual_runs`` (added; knobs off) and the mesh
-    path's sharded runs ``mesh_runs`` (added; knobs off)."""
+    visual-example runs ``visual_runs`` (added; knobs off), the mesh
+    path's sharded runs ``mesh_runs`` (added; knobs off) and the dcn
+    path's runs in every rank ``dcn_runs`` (added over runs and ranks; (c)
+    with both knobs at 1)."""
     table = []
     for name, (source, replaces) in SOURCES.items():
         timed = [r for r in rows if r["kernel"] == name and "kernel_ms" in r]
@@ -3993,7 +4512,8 @@ def kernel_table(rows, launches, routes, eval_run, sdxl_run, xkv_run,
                            ("refact", refact_run), ("trace", trace_run),
                            ("finetune", finetune_run), ("cert", cert_run),
                            ("visual", summed(visual_runs)),
-                           ("mesh", summed(mesh_runs))):
+                           ("mesh", summed(mesh_runs)),
+                           ("dcn", summed(dcn_runs))):
             entry[f"{label}_launches"] = run["launches"].get(name, 0)
             if name in run["routes"]:
                 entry[f"{label}_route_launches"] = run["routes"][name]
@@ -4019,6 +4539,8 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the port is not importable here ({e})",
               file=sys.stderr)
         return 2
+    if "--dcn-worker" in argv:
+        return dcn_worker(argv[argv.index("--dcn-worker") + 1])
     smi = nvidia_smi_line()
     t0 = time.time()
     _build.lib()
@@ -4069,7 +4591,8 @@ def main(argv=None) -> int:
                 failures.append(f"{free_gb:.1f} GB free in {tmp}")
             else:
                 ckpt = write_checkpoint(torch, tmp)
-                launches, routes = cli_path(torch, tmp, ckpt, failures)
+                launches, routes, cli_twin = cli_path(torch, tmp, ckpt,
+                                                      failures)
                 lap("cli_path")
                 evals = eval_path(torch, tmp, ckpt, failures)
                 lap("eval_path")
@@ -4084,6 +4607,8 @@ def main(argv=None) -> int:
                 lap("cert_path")
                 mesh_runs = mesh_path(torch, tmp, ckpt, failures)
                 lap("mesh_path")
+                dcn_runs = dcn_path(torch, tmp, ckpt, cli_twin, failures)
+                lap("dcn_path")
     finally:
         shutil.rmtree(stats_dir, ignore_errors=True)
     ref, build_s = build_sdxl(torch)
@@ -4107,7 +4632,8 @@ def main(argv=None) -> int:
     emit({"kernels": kernel_table(rows, launches, routes, mend, sdxl,
                                   xkv_run, region_run, pres_run,
                                   refact_run, trace_run, finetune_run,
-                                  cert_run, visual_runs, mesh_runs)})
+                                  cert_run, visual_runs, mesh_runs,
+                                  dcn_runs)})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,12 @@ keeps each encoder's covariances under ``D/sdxl/text1`` and
 ``D/sdxl/text2`` (the layout of the default ``XL_STATS_DIR1``/``2``).
 
 Runs on the card (``--platform cuda``, the default, ``--tiny`` included)
-unless ``--platform cpu`` asks for the CPU.  The fused-norm knobs
+unless ``--platform cpu`` asks for the CPU.  Under ``torchrun
+--nproc-per-node N`` the processes join one process group (``nccl`` with
+a card each, ``gloo`` when they share a card or run on the CPU; printed)
+and the mesh gains the ``dcn`` axis across them: generation, Stage 1 and
+the covariance sweeps shard over every process.  Only rank 0 writes files
+and prints; the others meet it at a barrier before they exit.  The fused-norm knobs
 ``EMCID_TPU_FUSED_GN`` (0, 1, geo) and ``EMCID_TPU_FUSED_LN`` (0, 1) are
 read from the environment, as in the JAX package.
 
@@ -39,6 +44,8 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from emcid_torch.parallel.distributed import is_writer
 
 
 def save_images(images: np.ndarray, out_dir: Path, names) -> None:
@@ -83,6 +90,26 @@ def main(argv=None, timings: Optional[Dict[str, float]] = None):
 
     with open(args.instruction_path) as f:
         instruction = json.load(f)
+
+    from emcid_torch.parallel import distributed
+
+    dev = distributed.setup_process(args.platform)
+    with distributed.quiet_unless_writer():
+        out = _run(args, dev, instruction, timings)
+    distributed.barrier()
+    return out
+
+
+def _run(args, dev, instruction, timings: Dict[str, float]):
+    from emcid_torch.engine.editor import apply_emcid
+    from emcid_torch.hparams import load_hparams
+    from emcid_torch.models.loader import (
+        build_random_pipeline, build_tiny_pipeline, load_pipeline,
+    )
+    from emcid_torch.models.pipeline import generate
+    from emcid_torch.parallel import default_mesh
+    from emcid_torch.parallel.distributed import process_count
+
     requests = instruction["requests"]
     model_ckpt = instruction.get("model_ckpt", "sd-v1.4")
     mom2_weight = instruction.get("mom2_weight")
@@ -90,23 +117,13 @@ def main(argv=None, timings: Optional[Dict[str, float]] = None):
     val_prompts = instruction.get("val_prompts", [])
     out_dir = Path(instruction.get("out_dir", "results/run_emcid"))
     sample_num = int(instruction.get("sample_num", 5))
-
-    from emcid_torch.engine.editor import apply_emcid
-    from emcid_torch.hparams import load_hparams
-    from emcid_torch.models.loader import (
-        build_random_pipeline, build_tiny_pipeline, load_pipeline,
-    )
-    from emcid_torch.models.pipeline import generate
-    from emcid_torch.runtime import resolve_device
-
-    from emcid_torch.parallel import default_mesh
-
-    dev = resolve_device(args.platform)
     hparams = load_hparams(instruction["hparams"], hparams_dir=args.hparams_dir)
     print(f"Loaded hparams {instruction['hparams']}: layers {hparams.layers}")
-    mesh = default_mesh(disable=args.no_mesh) if dev.type == "cuda" else None
+    mesh = (default_mesh(disable=args.no_mesh)
+            if dev.type == "cuda" or process_count() > 1 else None)
     if mesh is not None:
-        print(f"[run_emcid] data mesh over {mesh.size} devices")
+        print(f"[run_emcid] {'x'.join(map(str, mesh.shape))} "
+              f"{'/'.join(mesh.axis_names)} mesh over {mesh.size} devices")
     if model_ckpt.startswith("sdxl"):
         return _main_sdxl(args, dev, instruction, hparams, timings, mesh)
     if model_ckpt not in ("sd-v1.4", "sd-v1.5"):
@@ -180,7 +197,8 @@ def _renderer(generate, gen_kwargs, val_prompts, sample_num: int, seed: int,
         t0 = time.time()
         imgs = generate(components, prompts, seeds, **gen_kwargs)
         timings[f"{phase}_generation"] = time.time() - t0
-        save_images(imgs, out_dir / phase, names)
+        if is_writer():
+            save_images(imgs, out_dir / phase, names)
 
     return render
 
@@ -277,4 +295,7 @@ def _main_sdxl(args, dev, instruction, hparams, timings: Dict[str, float],
 
 
 if __name__ == "__main__":
+    from emcid_torch.parallel import distributed
+
     main()
+    distributed.shutdown()

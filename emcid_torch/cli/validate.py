@@ -28,6 +28,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from emcid_torch.parallel.distributed import is_writer
 from emcid_torch.runtime import precise_matmuls
 
 
@@ -126,7 +127,7 @@ def make_self_goldens(components, out_path, num_pndm_steps: int = 8) -> Dict:
         components.schedule, inp["latents"].shape[:1] + (hw, hw, 4),
         num_pndm_steps)
     out["pndm_steps"] = np.asarray(num_pndm_steps)
-    if out_path is not None:
+    if out_path is not None and is_writer():
         Path(out_path).parent.mkdir(parents=True, exist_ok=True)
         np.savez(out_path, **out)
     return out

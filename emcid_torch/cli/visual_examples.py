@@ -33,6 +33,8 @@ from pathlib import Path
 
 import numpy as np
 
+from emcid_torch.parallel.distributed import is_writer
+
 EXAMPLES = {
     "van_gogh": {
         "requests": [{
@@ -110,6 +112,8 @@ def image_grid(images: np.ndarray, cols: int) -> np.ndarray:
 def _save_grids(out: Path, pre: np.ndarray, post: np.ndarray, cols: int):
     from PIL import Image
 
+    if not is_writer():
+        return out
     out.mkdir(parents=True, exist_ok=True)
     Image.fromarray(image_grid(pre, cols)).save(out / "pre.png")
     Image.fromarray(image_grid(post, cols)).save(out / "post.png")
@@ -213,6 +217,8 @@ def run_artist_holdout(args, comps, hparams, gen_kwargs):
     from PIL import Image
 
     out = Path(args.out_dir) / "artist_holdout" / holdout.replace(" ", "_")
+    if not is_writer():
+        return out
     out.mkdir(parents=True, exist_ok=True)
     grid = image_grid(np.concatenate(rows), args.sample_num)
     Image.fromarray(grid).save(out / "holdout_vs_edit_num.png")
@@ -257,8 +263,9 @@ def run_debias_grid(args, comps, hparams, gen_kwargs):
                                   ] * args.sample_num, seeds, **gen_kwargs)
         from PIL import Image
 
-        Image.fromarray(image_grid(group, args.sample_num)).save(
-            out / "group_post.png")
+        if is_writer():
+            Image.fromarray(image_grid(group, args.sample_num)).save(
+                out / "group_post.png")
         outs.append(out)
     print(f"debias factors: {factors}")
     return outs[0]
@@ -375,12 +382,19 @@ def main(argv=None):
 
     from emcid_torch.cli.workflows import _setup
 
+    from emcid_torch.parallel import distributed
+
     args.data_dir = args.cache_dir = args.results_dir = args.stats_dir = None
     comps, hparams, gen_kwargs, _mesh = _setup(args)
-    out = MODES[args.mode](args, comps, hparams, gen_kwargs)
-    print(f"figures in {out}")
+    with distributed.quiet_unless_writer():
+        out = MODES[args.mode](args, comps, hparams, gen_kwargs)
+        print(f"figures in {out}")
+    distributed.barrier()
     return out
 
 
 if __name__ == "__main__":
+    from emcid_torch.parallel import distributed
+
     main()
+    distributed.shutdown()

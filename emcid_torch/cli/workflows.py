@@ -99,16 +99,18 @@ def _sync(device) -> None:
 def _setup(args, timings: Optional[Dict[str, float]] = None):
     """(components, hparams, gen_kwargs, mesh) of the model source the
     flags name, on ``--platform``; ``timings["load"]`` gets the seconds.
-    The mesh is ``default_mesh(disable=--no-mesh)`` on the card (None with
-    fewer than two cards) and goes into ``gen_kwargs["mesh"]`` only when it
-    is not None."""
+    Under torchrun with two or more processes this process first joins the
+    process group and takes its own device.  The mesh is
+    ``default_mesh(disable=--no-mesh)`` on the card (None with fewer than
+    two cards) or across processes (the ``dcn`` mesh, on either platform),
+    and goes into ``gen_kwargs["mesh"]`` only when it is not None."""
     from emcid_torch.hparams import load_hparams
     from emcid_torch.models.loader import (
         build_random_pipeline, build_tiny_pipeline, load_pipeline,
     )
-    from emcid_torch.runtime import resolve_device
+    from emcid_torch.parallel import distributed
 
-    dev = resolve_device(args.platform)
+    dev = distributed.setup_process(args.platform)
     t0 = time.time()
     hparams = load_hparams(args.hparam, hparams_dir=args.hparams_dir)
     if args.tiny:
@@ -140,7 +142,8 @@ def _setup(args, timings: Optional[Dict[str, float]] = None):
     from emcid_torch.parallel import default_mesh
 
     mesh = (default_mesh(disable=getattr(args, "no_mesh", False))
-            if dev.type == "cuda" else None)
+            if dev.type == "cuda" or distributed.process_count() > 1
+            else None)
     if mesh is not None:
         gen_kwargs["mesh"] = mesh
     return comps, hparams, gen_kwargs, mesh
@@ -681,6 +684,15 @@ def main(argv=None, timings: Optional[Dict[str, float]] = None):
     "generation", "scoring"), the image counts and, for ``layer_stats``,
     each layer's seconds under its name."""
     args = build_parser().parse_args(argv)
+    from emcid_torch.parallel import distributed
+
+    with distributed.quiet_unless_writer():
+        out = _dispatch(args, timings)
+    distributed.barrier()
+    return out
+
+
+def _dispatch(args, timings):
     if args.cmd == "aice":
         return cmd_aice(args, timings)
     if args.cmd == "mend":
@@ -715,4 +727,7 @@ def main(argv=None, timings: Optional[Dict[str, float]] = None):
 
 
 if __name__ == "__main__":
+    from emcid_torch.parallel import distributed
+
     main()
+    distributed.shutdown()

@@ -21,6 +21,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from emcid_torch.globals_cfg import DATA_DIR
+from emcid_torch.parallel.distributed import is_writer
 
 
 def class_name_embeddings(text_model, tokenizer, names: Sequence[str],
@@ -116,8 +117,9 @@ def edit_test_split(
         else:
             test_set.append(item)
 
-    with open(base / edit_file, "w") as f:
-        json.dump(edit_set, f, indent=4)
-    with open(base / test_file, "w") as f:
-        json.dump(test_set, f, indent=4)
+    if is_writer():
+        with open(base / edit_file, "w") as f:
+            json.dump(edit_set, f, indent=4)
+        with open(base / test_file, "w") as f:
+            json.dump(test_set, f, indent=4)
     return {"edit": edit_set, "test": test_set, "dest_set": dest_set}

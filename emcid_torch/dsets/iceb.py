@@ -19,6 +19,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from emcid_torch.globals_cfg import DATA_DIR, EDITING_PROMPTS_CNT
+from emcid_torch.parallel.distributed import is_writer
 
 EDIT_PROMPT_TEMPLATES = ["An image of {}", "A photo of {}", "{}"]
 
@@ -337,7 +338,7 @@ def get_filtered_dataset(
     new_rows = [item for idx, item in enumerate(ds)
                 if idx // prompts_per_class in full]
     assert len(new_rows) == len(full) * prompts_per_class
-    if out_file is not None:
+    if out_file is not None and is_writer():
         Path(out_file).parent.mkdir(parents=True, exist_ok=True)
         with open(out_file, "w") as f:
             json.dump(new_rows, f, indent=4)

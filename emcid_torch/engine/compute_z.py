@@ -271,7 +271,8 @@ class ZOptimizer:
     def _shards(self, C: int, mesh) -> List[_Shard]:
         """The concept slices of a block of C and the models each runs:
         the whole block on the optimizer's own models without a mesh, else
-        C / mesh.size concepts per mesh entry on its replicas."""
+        C / mesh.size concepts per mesh entry of this process on its
+        replicas (the global slices from ``mesh.first`` on)."""
         if mesh is None:
             dev = next(self.unet.parameters()).device
             return [_Shard(slice(0, C), self.text_model, self.unet, dev)]
@@ -282,7 +283,8 @@ class ZOptimizer:
         return [_Shard(slice(k * n, (k + 1) * n), text, unet, d)
                 for k, (text, unet, d) in enumerate(zip(
                     replicate(self.text_model, mesh),
-                    replicate(self.unet, mesh), mesh.devices))]
+                    replicate(self.unet, mesh), mesh.devices),
+                    start=mesh.first)]
 
     @torch.no_grad()
     def _prepare(self, sh: _Shard, batch: ConceptBatch, is_esd: bool,
@@ -416,7 +418,11 @@ class ZOptimizer:
         per-shard losses are gathered before one backward, so Adam and the
         ball projection run on the whole delta as without a mesh: sharded
         equals unsharded up to the summation order of the smaller UNet
-        batches.  The padding is dropped from every output."""
+        batches.  On a mesh across processes each process runs its own
+        shards and takes the gradient of their losses, whose rows (and the
+        losses) are then gathered from every process in shard order: every
+        process steps the same delta.  The padding is dropped from every
+        output."""
         hp = self.hparams
         dev = batch.source_ids.device
         if gen is None:
@@ -445,10 +451,11 @@ class ZOptimizer:
                           else _f32(tia_weight, dev)))
 
         shards = self._shards(C + pad, mesh)
+        rows = slice(shards[0].rows.start, shards[-1].rows.stop)
         full = ConceptBatch(*(padded(x) for x in batch))
         states = [self._prepare(sh, full, is_esd, tia) for sh in shards]
-        z0 = gather([st["z0"] for st in states], dev)
-        z0_norm = gather([st["z0_norm"] for st in states], dev)
+        z0 = gather([st["z0"] for st in states], dev, mesh)
+        z0_norm = gather([st["z0_norm"] for st in states], dev, mesh)
 
         pools = None
         if (self.eps_pool and total and not replay and noise_loss
@@ -502,6 +509,10 @@ class ZOptimizer:
                                         eps_src))
             loss = gather(parts, dev)
             grad, = torch.autograd.grad(loss.sum(), delta)
+            # this process's rows of the gradient (no other row depends on
+            # its shards), then every process's, in shard order
+            grad = gather([grad[rows]], dev, mesh)
+            loss = gather([loss.detach()], dev, mesh)
             with torch.no_grad():
                 adam_step_(delta, m1, m2, grad, float(lrs[step]), step + 1)
                 clamp_to_ball_(delta, max_norm)

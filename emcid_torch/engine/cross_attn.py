@@ -49,7 +49,8 @@ from emcid_torch.models.pipeline import SDComponents, encode_prompts
 from emcid_torch.models.scheduler import add_noise
 from emcid_torch.models.unet import unet_inject
 from emcid_torch.ops.solve import solve_adj_k, upd_matrix_match_shape
-from emcid_torch.parallel import replicate
+from emcid_torch.parallel import gather, replicate
+from emcid_torch.parallel.distributed import is_writer
 from emcid_torch.runtime import precise_matmuls
 from emcid_torch.stats import CombinedStat, SecondMoment, tally
 
@@ -152,9 +153,11 @@ def compute_z_unet_x_kv(
     With ``mesh`` the UNet's prompt axis shards over the mesh entries (the
     UNet replicated): the prompts are tiled to lcm(P, mesh.size) rows and
     every draw is made at the original P and tiled, so each copy adds the
-    same loss term and the trajectory equals the unsharded one.  The
-    shards' squared errors are summed in shard order on the first device,
-    where the deltas and Adam live."""
+    same loss term and the trajectory equals the unsharded one.  Each
+    shard's squared error and its gradient are taken on its own; those of
+    every shard (of every process, on a mesh across processes) are summed
+    in global shard order on the first device, where the deltas and Adam
+    live, so every process steps the same deltas."""
     hp = hparams
     unet, schedule = components.unet, components.schedule
     dev, dtype = components.device, components.dtype
@@ -201,7 +204,8 @@ def compute_z_unet_x_kv(
     else:
         n = P * reps // mesh.size
         shards = [(slice(k * n, (k + 1) * n), u, d) for k, (u, d) in
-                  enumerate(zip(replicate(unet, mesh), mesh.devices))]
+                  enumerate(zip(replicate(unet, mesh), mesh.devices),
+                            start=mesh.first)]
     per = [dict(ctx_src=tile(ctx_src)[r].to(d), ctx_unc=tile(ctx_unc)[r].to(d),
                 ctx_safe=tile(ctx_safe)[r].to(d),
                 tok_mask=tile(tok_mask)[r].to(d), frac=(r.stop - r.start)
@@ -234,7 +238,7 @@ def compute_z_unet_x_kv(
         noisy = add_noise(schedule, lat, noise, t).permute(0, 3, 1, 2)
         noisy, t = tile(noisy.to(dtype)), tile(t)
         leaves = {n: d.clone().requires_grad_() for n, d in deltas.items()}
-        mse = 0.0
+        shard_rows = []  # per shard: its term, then its gradients
         for (r, u, d), sh in zip(shards, per):
             x, t_s = noisy[r].to(d), t[r].to(d)
             with torch.no_grad():
@@ -255,12 +259,23 @@ def compute_z_unet_x_kv(
                 eps_edit = u(x, t_s, sh["ctx_src"]).sample.float()
             # each shard's mean weighted by its share of the rows (1.0, an
             # exact product, without a mesh)
-            mse = mse + (eps_edit - target).pow(2).mean().to(dev) * sh["frac"]
+            term = (eps_edit - target).pow(2).mean().to(dev) * sh["frac"]
+            shard_rows.append(torch.cat([term.detach()[None], *(
+                g.to(dev) for g in torch.autograd.grad(
+                    term, list(leaves.values())))]))
+        # every process's shards' terms and gradients, summed in global
+        # shard order, then the regulariser's
+        rows = gather([torch.stack(shard_rows)], dev, mesh)
+        total = rows[0]
+        for r in rows[1:]:
+            total = total + r
         # safe norm: its gradient at delta = 0 is 0, not NaN
         reg = sum(wd * torch.sqrt(d.pow(2).sum() + 1e-12) / z0n[n] ** 2
-                  for n, d in leaves.items())
-        loss = mse + reg / len(kv_names)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
+                  for n, d in leaves.items()) / len(kv_names)
+        parts = total[1:].split([d.numel() for d in leaves.values()])
+        grads = [g + p for g, p in zip(
+            torch.autograd.grad(reg, list(leaves.values())), parts)]
+        loss = total[0] + reg.detach()
         with torch.no_grad():
             for (n, d), g in zip(deltas.items(), grads):
                 adam_step_(d, *moments[n], g, float(hp.v_lr), step + 1)
@@ -373,7 +388,7 @@ def apply_emcid_to_cross_attn(
             cached = compute_z_unet_x_kv(
                 components, request, hparams, latents_mean[idx],
                 latents_logvar[idx], mesh=mesh, verbose=verbose)
-            if cache_full is not None:
+            if cache_full is not None and is_writer():
                 cache_full.parent.mkdir(exist_ok=True, parents=True)
                 np.savez(cache_full, **cached)
         for n in kv_names:

@@ -37,6 +37,7 @@ from emcid_torch.engine.extract import (
 )
 from emcid_torch.models.clip_text import causal_attention_mask
 from emcid_torch.ops.solve import solve_adj_k, upd_matrix_match_shape
+from emcid_torch.parallel.distributed import is_writer
 from emcid_torch.runtime import precise_matmuls
 
 
@@ -77,6 +78,10 @@ def load_z_list(requests: Sequence[Dict], cache_name: Optional[str],
 
 def save_z_cache(cache_name: str, request: Dict, z, hparams=None,
                  idx: Optional[int] = None):
+    """Write one z to the cache (under a process group, the first process
+    only: every process holds the same z)."""
+    if not is_writer():
+        return
     p = z_cache_path(cache_name, request, hparams, idx=idx)
     p.parent.mkdir(exist_ok=True, parents=True)
     z = z.detach().cpu().numpy() if torch.is_tensor(z) else np.asarray(z)

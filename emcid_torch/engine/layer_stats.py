@@ -22,10 +22,12 @@ import numpy as np
 import torch
 
 from emcid_torch.parallel import (
+    gather,
     pad_to_multiple,
     replicate,
     shard_batch,
 )
+from emcid_torch.parallel.distributed import barrier
 from emcid_torch.stats import (
     CombinedStat,
     Mean,
@@ -100,7 +102,12 @@ def layer_stats_text_encoder(
     layer's fc2 input.  With ``mesh`` (``mom2`` only) each caption batch
     is padded to a multiple of the mesh, its rows shard over the mesh
     entries (the text model replicated), and each shard accumulates its
-    own ``SecondMoment``, summed in shard order at the end of the sweep."""
+    own ``SecondMoment``; at the end of the sweep every shard's sums,
+    gathered from every process, are added in global shard order, so each
+    process holds the same moment, bit for bit that of a one-process mesh
+    of as many shards.  On a mesh across processes only the first writes
+    the cache, and the others wait for it at a barrier (every process
+    shares the checkout, so they all hit or all miss the cache)."""
     filename = stats_filename(stats_dir, model_name, ds_name, layer_name,
                               precision, to_collect, batch_tokens, sample_size)
     stat = CombinedStat(**{k: STAT_TYPES[k]() for k in to_collect})
@@ -112,7 +119,7 @@ def layer_stats_text_encoder(
         if set(to_collect) != {"mom2"}:
             raise ValueError(f"mesh= collects mom2 only, not {to_collect}")
         # each shard adds into its own SecondMoment; at the end of the sweep
-        # they are summed in shard order on the first entry
+        # they are summed in global shard order on the first entry
         shard_moms = [SecondMoment() for _ in mesh.devices]
     loader = tally(
         stat, list(captions) if captions is not None else [],
@@ -120,8 +127,7 @@ def layer_stats_text_encoder(
         sample_size=sample_size, batch_size=batch_size, random_sample=1,
         quiet=True,
         on_end=(None if shard_moms is None
-                else lambda: _sum_shards(stat.mom2, shard_moms,
-                                           mesh.devices[0])))
+                else lambda: _sum_shards(stat.mom2, shard_moms, mesh)))
     layer_index = _layer_index_from_name(layer_name)
     max_length = max_length or tokenizer.model_max_length
     device = next(model.parameters()).device
@@ -142,7 +148,8 @@ def layer_stats_text_encoder(
             parts = [fc2_inputs(m, i, k, layer_index) for m, i, k in zip(
                 models, shard_batch(torch.as_tensor(ids), mesh),
                 shard_batch(torch.as_tensor(mask), mesh))]
-            for mom, f, k in zip(shard_moms, parts, np.split(mask, mesh.size)):
+            masks = np.split(mask, mesh.size)[mesh.first:]
+            for mom, f, k in zip(shard_moms, parts, masks):
                 mom.add(f.reshape(-1, f.shape[-1]), n_valid=int(k.sum()))
             continue
         feats = fc2_inputs(model, torch.as_tensor(ids, device=device),
@@ -154,17 +161,25 @@ def layer_stats_text_encoder(
             real = torch.as_tensor(mask.reshape(-1).astype(bool),
                                    device=device)
             stat.add(flat[real])
+    if mesh is not None and mesh.spans_processes:
+        barrier()  # the first process has written the cache
     return stat
 
 
-def _sum_shards(total: SecondMoment, shards, device) -> None:
-    """``total`` = the shards' sums in shard order, on ``device``."""
-    total.count = sum(m.count for m in shards)
-    total.mom2 = None
-    for m in shards:
-        if m.mom2 is not None:
-            part = m.mom2.to(device)
-            total.mom2 = part.clone() if total.mom2 is None else total.mom2 + part
+def _sum_shards(total: SecondMoment, shards, mesh) -> None:
+    """``total`` = every shard's sums, from every process, added in
+    global shard order on the first entry."""
+    dev = mesh.devices[0]
+    total.count, total.mom2 = 0, None
+    if shards[0].mom2 is None:  # an empty sweep: no shard saw a row
+        return
+    counts = gather([torch.tensor([m.count], device=dev) for m in shards],
+                    dev, mesh)
+    moms = gather([m.mom2[None] for m in shards], dev, mesh)
+    total.count = int(counts.sum())
+    total.mom2 = moms[0].clone()
+    for part in moms[1:]:
+        total.mom2 = total.mom2 + part
 
 
 def get_cov_text_encoder(

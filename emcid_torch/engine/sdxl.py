@@ -61,7 +61,8 @@ from emcid_torch.models.sdxl import (
     sdxl_condition,
     sdxl_time_ids,
 )
-from emcid_torch.parallel import replicate
+from emcid_torch.parallel import gather, replicate
+from emcid_torch.parallel.distributed import is_writer
 
 
 class SDXLDraws(NamedTuple):
@@ -117,7 +118,11 @@ def compute_z_sdxl_text_encoders(
     encoders and the UNet are replicated, and concept c runs its forwards
     and backward on entry ``c * mesh.size // C``.  The port's SDXL Stage 1
     already steps one concept at a time, so the block needs no padding and
-    the draws keep their unsharded order."""
+    the draws keep their unsharded order.  On a mesh across processes
+    every process makes every draw and runs only the concepts of its own
+    entries; each concept's gradient and loss are then gathered from the
+    process that ran it, so every process steps the same deltas and
+    returns the same z."""
     hp = hparams
     if getattr(hp, "replace_repr", False):
         raise NotImplementedError(
@@ -173,13 +178,16 @@ def compute_z_sdxl_text_encoders(
     z0n_1 = z0_1.reshape(C, -1).norm(dim=-1)
     z0n_2 = z0_2.reshape(C, -1).norm(dim=-1)
 
-    # per concept: (text1, text2, unet, device) of its mesh entry
+    # per concept: (text1, text2, unet, device) of its mesh entry, None
+    # where that entry belongs to another process
     if mesh is None:
         where = [(text1, text2, unet, dev)] * C
     else:
         reps = list(zip(replicate(text1, mesh), replicate(text2, mesh),
                         replicate(unet, mesh), mesh.devices))
-        where = [reps[c * mesh.size // C] for c in range(C)]
+        entry = [c * mesh.size // C - mesh.first for c in range(C)]
+        where = [reps[e] if 0 <= e < len(reps) else None for e in entry]
+    apart = mesh is not None and mesh.spans_processes
 
     d1, d2 = torch.zeros_like(z0_1), torch.zeros_like(z0_2)
     moments = [torch.zeros_like(d) for d in (d1, d1, d2, d2)]
@@ -189,7 +197,7 @@ def compute_z_sdxl_text_encoders(
     step_losses = []
     for step in range(total):
         g1, g2 = torch.zeros_like(d1), torch.zeros_like(d2)
-        step_loss = torch.zeros((), device=dev)
+        concept_loss = torch.zeros(C, device=dev)
         for c in range(C):
             if replay is not None:
                 img, eps = replay.img_idx[step, c], replay.post_eps[step, c]
@@ -200,6 +208,8 @@ def compute_z_sdxl_text_encoders(
                 noise = torch.randn(mean.shape[2:], generator=gen, device=dev)
                 t = torch.randint(0, schedule.num_train_timesteps, (P,),
                                   generator=gen, device=dev)
+            if where[c] is None:  # drawn, run by its own process
+                continue
             lat = mean[c, img, ar] + torch.exp(0.5 * logvar[c, img, ar]) * eps
             noisy = add_noise(schedule, lat, noise, t).permute(0, 3, 1, 2)
             tx1, tx2, un, d = where[c]
@@ -232,7 +242,16 @@ def compute_z_sdxl_text_encoders(
                     (pool1.float().to(dev) - d_pool1[c]).pow(2).mean()
                     + (pool2.float().to(dev) - d_pool2[c]).pow(2).mean())
             g1[c], g2[c] = torch.autograd.grad(loss, (dc1, dc2))
-            step_loss += loss.detach() / C
+            concept_loss[c] = loss.detach()
+        if apart:
+            # each concept's rows from the process that ran it
+            owner = torch.tensor([(c * mesh.size // C) // len(mesh.devices)
+                                  for c in range(C)], device=dev)
+            pick = (owner, torch.arange(C, device=dev))
+            g1 = gather([g1[None]], dev, mesh)[pick]
+            g2 = gather([g2[None]], dev, mesh)[pick]
+            concept_loss = gather([concept_loss[None]], dev, mesh)[pick]
+        step_loss = (concept_loss / C).sum()
         with torch.no_grad():
             for d, m, v, g, z0n in ((d1, *moments[:2], g1, z0n_1),
                                     (d2, *moments[2:], g2, z0n_2)):
@@ -436,7 +455,7 @@ def apply_emcid_to_sdxl_text_encoders(
             height=height, width=width, mesh=mesh, verbose=verbose)
         for k, i in enumerate(missing):
             zs_1[i], zs_2[i] = z1[k], z2[k]
-            if cache_name is not None:
+            if cache_name is not None and is_writer():
                 p1, p2 = z_cache_paths(cache_name, requests[i], hparams)
                 p1.parent.mkdir(exist_ok=True, parents=True)
                 np.savez(p1, v_star=z1[k])

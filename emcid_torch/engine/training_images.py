@@ -127,8 +127,8 @@ def generate_posteriors(
         else:
             parts = [posterior_of_latents(c, x)
                      for c, x in zip(shards, shard_batch(lat, mesh))]
-            m = gather([p[0] for p in parts], lat.device)
-            lv = gather([p[1] for p in parts], lat.device)
+            m = gather([p[0] for p in parts], lat.device, mesh)
+            lv = gather([p[1] for p in parts], lat.device, mesh)
         means.append(m[:keep])
         logvars.append(lv[:keep])
     return torch.cat(means), torch.cat(logvars)

@@ -17,6 +17,7 @@ import numpy as np
 from emcid_torch.models.lpips import LPIPSScorer
 from emcid_torch.models.pipeline import SDComponents, generate
 from emcid_torch.models.vision import CLIPScorer
+from emcid_torch.parallel.distributed import is_writer, shared_writes
 
 
 def generate_artist_images(
@@ -36,15 +37,17 @@ def generate_artist_images(
         r for r in prompt_rows
         if not (out_dir / f"{r['case_number']}_{r['evaluation_seed']}.png").exists()
     ]
-    for i in range(0, len(todo), batch_size):
-        chunk = todo[i:i + batch_size]
-        imgs = generate(
-            components, [r["prompt"] for r in chunk],
-            [r["evaluation_seed"] for r in chunk], **(gen_kwargs or {}),
-        )
-        for r, img in zip(chunk, imgs):
-            Image.fromarray(img).save(
-                out_dir / f"{r['case_number']}_{r['evaluation_seed']}.png")
+    with shared_writes() as write:
+        for i in range(0, len(todo), batch_size):
+            chunk = todo[i:i + batch_size]
+            imgs = generate(
+                components, [r["prompt"] for r in chunk],
+                [r["evaluation_seed"] for r in chunk], **(gen_kwargs or {}),
+            )
+            if write:
+                for r, img in zip(chunk, imgs):
+                    name = f"{r['case_number']}_{r['evaluation_seed']}.png"
+                    Image.fromarray(img).save(out_dir / name)
 
 
 def eval_artists(
@@ -88,7 +91,7 @@ def eval_artists(
         } | {"n": len(metrics["lpips"]) or len(metrics["clip"])}
         for kind, metrics in buckets.items()
     }
-    if out_json is not None:
+    if out_json is not None and is_writer():
         Path(out_json).parent.mkdir(parents=True, exist_ok=True)
         with open(out_json, "w") as f:
             json.dump(result, f, indent=4)

@@ -18,6 +18,7 @@ from emcid_torch.evals.summary import summary_path, update_summary
 from emcid_torch.models.lpips import LPIPSScorer
 from emcid_torch.models.pipeline import SDComponents, generate
 from emcid_torch.models.vision import CLIPScorer
+from emcid_torch.parallel.distributed import shared_writes
 
 
 def coco_summary_key(num_edit, mom2_weight, edit_weight=0.5) -> str:
@@ -41,14 +42,16 @@ def generate_coco(
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     todo = [r for r in rows if not (out_dir / f"{r['case_number']}.png").exists()]
-    for i in range(0, len(todo), batch_size):
-        chunk = todo[i:i + batch_size]
-        imgs = generate(
-            components, [r["prompt"] for r in chunk],
-            [r["evaluation_seed"] for r in chunk], **(gen_kwargs or {}),
-        )
-        for r, img in zip(chunk, imgs):
-            Image.fromarray(img).save(out_dir / f"{r['case_number']}.png")
+    with shared_writes() as write:
+        for i in range(0, len(todo), batch_size):
+            chunk = todo[i:i + batch_size]
+            imgs = generate(
+                components, [r["prompt"] for r in chunk],
+                [r["evaluation_seed"] for r in chunk], **(gen_kwargs or {}),
+            )
+            if write:
+                for r, img in zip(chunk, imgs):
+                    Image.fromarray(img).save(out_dir / f"{r['case_number']}.png")
 
 
 def cal_lpips_coco(

@@ -16,6 +16,7 @@ import torch
 from emcid_torch.evals.debias_shared import ratio_delta
 from emcid_torch.models.pipeline import SDComponents, generate
 from emcid_torch.models.vision import CLIPScorer
+from emcid_torch.parallel.distributed import shared_writes
 
 
 def generate_debias_eval_imgs(
@@ -39,13 +40,15 @@ def generate_debias_eval_imgs(
                 p = out_dir / prompt / f"seed{seed}_img{i}.png"
                 if not p.exists():
                     jobs.append((prompt, seed * 1000 + i, p))
-    for start in range(0, len(jobs), batch_size):
-        chunk = jobs[start:start + batch_size]
-        imgs = generate(components, [j[0] for j in chunk],
-                        [j[1] for j in chunk], **(gen_kwargs or {}))
-        for (prompt, _, path), img in zip(chunk, imgs):
-            path.parent.mkdir(parents=True, exist_ok=True)
-            Image.fromarray(img).save(path)
+    with shared_writes() as write:
+        for start in range(0, len(jobs), batch_size):
+            chunk = jobs[start:start + batch_size]
+            imgs = generate(components, [j[0] for j in chunk],
+                            [j[1] for j in chunk], **(gen_kwargs or {}))
+            if write:
+                for (prompt, _, path), img in zip(chunk, imgs):
+                    path.parent.mkdir(parents=True, exist_ok=True)
+                    Image.fromarray(img).save(path)
 
 
 def eval_ratios(

@@ -16,6 +16,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from emcid_torch.parallel.distributed import shared_writes
+
 
 class ImageItem:
     """Parser for the causal-trace image naming codec
@@ -109,9 +111,11 @@ def extract_all_images_clip(image_folder, clip_scorer, prompt_fn,
 
 
 def _save_items(items: List[ImageItem], file_path):
-    Path(file_path).parent.mkdir(parents=True, exist_ok=True)
-    with open(file_path, "w") as f:
-        json.dump([i.to_dict() for i in items], f, indent=2)
+    with shared_writes() as write:
+        if write:
+            Path(file_path).parent.mkdir(parents=True, exist_ok=True)
+            with open(file_path, "w") as f:
+                json.dump([i.to_dict() for i in items], f, indent=2)
 
 
 def cal_heatmap(items: List[ImageItem], n_layers: int,

@@ -15,6 +15,7 @@ from typing import Dict, List, Optional, Sequence
 
 from emcid_torch.evals.scorers import NUDENET_EXPOSED_LABELS, cal_nudity_rate
 from emcid_torch.models.pipeline import SDComponents, generate
+from emcid_torch.parallel.distributed import is_writer, shared_writes
 
 
 def generate_i2p_imgs(
@@ -37,17 +38,20 @@ def generate_i2p_imgs(
     by_g: Dict[float, List[Dict]] = {}
     for r in todo:
         by_g.setdefault(float(r.get("evaluation_guidance", 7.0)), []).append(r)
-    for g, group in by_g.items():
-        for i in range(0, len(group), batch_size):
-            chunk = group[i:i + batch_size]
-            kw = dict(gen_kwargs or {})
-            kw["guidance_scale"] = g
-            imgs = generate(
-                components, [r["prompt"] for r in chunk],
-                [r["evaluation_seed"] for r in chunk], **kw,
-            )
-            for r, img in zip(chunk, imgs):
-                Image.fromarray(img).save(out_dir / f"{r['case_number']}.png")
+    with shared_writes() as write:
+        for g, group in by_g.items():
+            for i in range(0, len(group), batch_size):
+                chunk = group[i:i + batch_size]
+                kw = dict(gen_kwargs or {})
+                kw["guidance_scale"] = g
+                imgs = generate(
+                    components, [r["prompt"] for r in chunk],
+                    [r["evaluation_seed"] for r in chunk], **kw,
+                )
+                if write:
+                    for r, img in zip(chunk, imgs):
+                        Image.fromarray(img).save(
+                            out_dir / f"{r['case_number']}.png")
 
 
 def detect_nude_classes(img_dir, out_csv, detector_cmd: Optional[str] = None
@@ -102,7 +106,7 @@ def i2p_nudity_summary(detections: Sequence[Sequence[str]], out_json=None
     exposed labels + ``total`` (eval_i2p_nudity.py:114-119) — per the
     byte-compatible-summary invariant."""
     counts = cal_nudity_rate(detections)
-    if out_json is not None:
+    if out_json is not None and is_writer():
         Path(out_json).parent.mkdir(parents=True, exist_ok=True)
         artifact = {k: counts[k] for k in (*NUDENET_EXPOSED_LABELS, "total")}
         with open(out_json, "w") as f:

@@ -38,6 +38,7 @@ from emcid_torch.evals.summary import (
 )
 from emcid_torch.globals_cfg import CACHE_DIR
 from emcid_torch.models.pipeline import SDComponents, generate
+from emcid_torch.parallel.distributed import is_writer
 
 
 @dataclass
@@ -87,7 +88,7 @@ def _run_jobs(components: SDComponents, jobs: List[_Job], gen_kwargs,
         _add(timings, "generated_images", len(to_gen))
         for k, i in enumerate(to_gen):
             images[i] = gen[k]
-            if jobs[i].cache_path is not None:
+            if jobs[i].cache_path is not None and is_writer():
                 jobs[i].cache_path.parent.mkdir(parents=True, exist_ok=True)
                 Image.fromarray(gen[k]).save(jobs[i].cache_path)
     return images  # type: ignore[return-value]

@@ -51,6 +51,8 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from emcid_torch.parallel.distributed import is_writer
+
 # pre-registered thresholds (do not tune post hoc)
 FLOOR_SIGMAS = 2.0
 RATIO_TOL = 0.10
@@ -283,7 +285,7 @@ def certify_levers(
     if verbose:
         _print_row(row, COMPOUND_RECIPE)
         print(f"  functional bar for the stack: {GUARD_BANDS}")
-    if out_path:
+    if out_path and is_writer():
         p = Path(out_path)
         p.parent.mkdir(parents=True, exist_ok=True)
         p.write_text(json.dumps(results, indent=1))

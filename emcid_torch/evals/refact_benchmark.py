@@ -34,6 +34,7 @@ import numpy as np
 
 from emcid_torch.models.pipeline import SDComponents, generate
 from emcid_torch.models.vision import CLIPScorer
+from emcid_torch.parallel.distributed import shared_writes
 
 
 def _eval_output_path(dataset, hparam_name, mom2_weight, edit_weight, row,
@@ -88,15 +89,17 @@ def generate_imgs_for_eval_single(
     prompts = _request_eval_prompts(row, dataset, oracle)
     paths = [out / p / f"seed_{global_seed}.png" for p in prompts]
     todo = [(p, pa) for p, pa in zip(prompts, paths) if not pa.exists()]
-    if todo:
-        # per-image seeds from (global_seed, prompt); the reference's single
-        # sequential torch RNG cannot be replicated
-        seeds = [eval_seed(global_seed, p) for p, _ in todo]
-        imgs = generate(components, [p for p, _ in todo], seeds,
-                        **(gen_kwargs or {}))
-        for (p, pa), img in zip(todo, imgs):
-            pa.parent.mkdir(parents=True, exist_ok=True)
-            Image.fromarray(img).save(pa)
+    with shared_writes() as write:
+        if todo:
+            # per-image seeds from (global_seed, prompt); the reference's
+            # single sequential torch RNG cannot be replicated
+            seeds = [eval_seed(global_seed, p) for p, _ in todo]
+            imgs = generate(components, [p for p, _ in todo], seeds,
+                            **(gen_kwargs or {}))
+            if write:
+                for (p, pa), img in zip(todo, imgs):
+                    pa.parent.mkdir(parents=True, exist_ok=True)
+                    Image.fromarray(img).save(pa)
     return out
 
 
@@ -271,16 +274,19 @@ def eval_all(
         with open(jpath) as f:
             results = json.load(f) or {}
     results[key] = record
-    with open(jpath, "w") as f:
-        json.dump(results, f, indent=4)
-
-    with open(rdir / f"{dataset}_results_{suffix}.csv", "w", newline="") as f:
-        w = csv.writer(f)
-        w.writerow(["old", "new", "efficacy", "generality", "generality90",
-                    "generality75", "specificity"])
-        for i in range(len(all_old)):
-            w.writerow([
-                all_old[i], all_new[i], all_eff[i].mean(), all_gen[i].mean(),
-                all_g90[i].mean(), all_g75[i].mean(), all_spec[i].mean(),
-            ])
+    with shared_writes() as write:
+        if write:
+            with open(jpath, "w") as f:
+                json.dump(results, f, indent=4)
+            with open(rdir / f"{dataset}_results_{suffix}.csv", "w",
+                      newline="") as f:
+                w = csv.writer(f)
+                w.writerow(["old", "new", "efficacy", "generality",
+                            "generality90", "generality75", "specificity"])
+                for i in range(len(all_old)):
+                    w.writerow([
+                        all_old[i], all_new[i], all_eff[i].mean(),
+                        all_gen[i].mean(), all_g90[i].mean(),
+                        all_g75[i].mean(), all_spec[i].mean(),
+                    ])
     return record["f1_score"]

@@ -23,6 +23,7 @@ from emcid_torch.models.vision import (
     ViTConfig,
     preprocess_for_model,
 )
+from emcid_torch.parallel.distributed import is_writer
 from emcid_torch.runtime import precise_matmuls
 
 
@@ -160,7 +161,8 @@ def fid_between_folders(folder1, folder2, extractor: Callable,
             ])
             feats.append(np.asarray(extractor(imgs)))
         feats = np.concatenate(feats)
-        np.savez(cache, feats=feats)
+        if is_writer():
+            np.savez(cache, feats=feats)
         return feats
 
     return fid_from_features(feats_for(folder1), feats_for(folder2))

@@ -17,6 +17,8 @@ import os
 from pathlib import Path
 from typing import Any, Dict, Optional
 
+from emcid_torch.parallel.distributed import shared_writes
+
 
 def summary_key(num_edit: int, mom2_weight, edit_weight=0.5,
                 prefix: str = "edit") -> str:
@@ -48,8 +50,14 @@ def lookup_summary(path, key: str) -> Optional[Dict[str, Any]]:
 
 
 def update_summary(path, key: str, record: Dict[str, Any]) -> Dict[str, Any]:
-    """Locked read-modify-write of one summary key."""
-    path = Path(path)
+    """Locked read-modify-write of one summary key (under a process group
+    every process merges, the first writes)."""
+    with shared_writes() as write:
+        return _update_summary(Path(path), key, record, write)
+
+
+def _update_summary(path: Path, key: str, record: Dict[str, Any],
+                    write: bool) -> Dict[str, Any]:
     path.parent.mkdir(parents=True, exist_ok=True)
     lock_path = str(path) + ".lock"
     lock_fd = None
@@ -68,10 +76,11 @@ def update_summary(path, key: str, record: Dict[str, Any]) -> Dict[str, Any]:
             summary[key] = existing
         else:
             summary[key] = record
-        tmp = str(path) + ".tmp"
-        with open(tmp, "w") as f:
-            json.dump(summary, f, indent=4)
-        os.replace(tmp, path)
+        if write:
+            tmp = str(path) + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(summary, f, indent=4)
+            os.replace(tmp, path)
         return summary
     finally:
         if lock_fd is not None:

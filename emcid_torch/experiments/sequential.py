@@ -13,6 +13,7 @@ from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
 from emcid_torch.models.pipeline import SDComponents, generate
+from emcid_torch.parallel.distributed import shared_writes
 
 
 def sequential_editing(
@@ -46,11 +47,13 @@ def sequential_editing(
             for p in val_prompts for s in range(sample_num)
             if not (save_dir / f"{p}_{stage}-seed{s}.png").exists()
         ]
-        if jobs:
-            imgs = generate(comps, [j[0] for j in jobs],
-                            [j[1] for j in jobs], **gk)
-            for (_, _, path), img in zip(jobs, imgs):
-                Image.fromarray(img).save(path)
+        with shared_writes() as write:
+            if jobs:
+                imgs = generate(comps, [j[0] for j in jobs],
+                                [j[1] for j in jobs], **gk)
+                if write:
+                    for (_, _, path), img in zip(jobs, imgs):
+                        Image.fromarray(img).save(path)
 
     snap(components, "pre")
     history = [components]

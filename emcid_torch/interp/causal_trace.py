@@ -32,6 +32,7 @@ from emcid_torch.models.pipeline import (
     denoise,
     initial_latents,
 )
+from emcid_torch.parallel.distributed import barrier, is_writer
 from emcid_torch.text.token_range import find_token_range
 
 GUIDANCE = 7.5
@@ -262,8 +263,12 @@ def save_trace_images(
         components, prompt, subject, [], noise_scale, seed,
         gen_kwargs=gen_kwargs, latents=latents,
     )
-    Image.fromarray(base[0]).save(out_dir / f"{class_name}_{idx}_{kind}_clean.png")
-    Image.fromarray(base[1]).save(out_dir / f"{class_name}_{idx}_{kind}_corrupt.png")
+    write = is_writer()
+    if write:
+        Image.fromarray(base[0]).save(
+            out_dir / f"{class_name}_{idx}_{kind}_clean.png")
+        Image.fromarray(base[1]).save(
+            out_dir / f"{class_name}_{idx}_{kind}_corrupt.png")
 
     tok = components.tokenizer
     enc = tok([prompt])
@@ -288,7 +293,9 @@ def save_trace_images(
             else:
                 name = (f"{class_name}_{idx}_{kind}_s{patch[0][0]}_w{window}"
                         f"_restore_{token_label}.png")
-            Image.fromarray(imgs[1]).save(out_dir / name)
+            if write:
+                Image.fromarray(imgs[1]).save(out_dir / name)
+    barrier()  # the others read the folder after the first wrote it
     return out_dir
 
 

@@ -10,7 +10,8 @@ hand both packages the same latents through ``sample_latents(latents=)``).
 With ``mesh=`` (``emcid_torch.parallel``) the image batch shards over the
 mesh entries, each running its replica of the UNet and the VAE; the initial
 latents are drawn for the whole batch first, so the images do not depend
-on the mesh.
+on the mesh.  On a mesh across processes each process runs its own shards
+and every process gets every image.
 """
 
 from __future__ import annotations
@@ -146,14 +147,14 @@ def sample_latents(
     if mesh is None:
         return denoise(components, latents, ctx_cond, ctx_uncond, **kw)
     latents = torch.as_tensor(latents, device=dev)
-    uncond = ([None] * mesh.size if ctx_uncond is None
+    uncond = ([None] * len(mesh.devices) if ctx_uncond is None
               else shard_batch(ctx_uncond, mesh))
     outs = [denoise(components.replace_unet(unet), lat, cond, unc, **kw)
             for unet, lat, cond, unc in zip(
                 replicate(components.unet, mesh),
                 shard_batch(latents, mesh), shard_batch(ctx_cond, mesh),
                 uncond)]
-    return gather(outs, dev)
+    return gather(outs, dev, mesh)
 
 
 @torch.no_grad()
@@ -211,7 +212,7 @@ def decode_latents(components: SDComponents, latents,
         img = _decode_uint8(vae, lat, sf, dtype)
     else:
         img = gather([_decode_uint8(v, x, sf, dtype) for v, x in zip(
-            replicate(vae, mesh), shard_batch(lat, mesh))], lat.device)
+            replicate(vae, mesh), shard_batch(lat, mesh))], lat.device, mesh)
     return img.cpu().numpy()
 
 

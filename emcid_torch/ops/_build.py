@@ -5,7 +5,14 @@ together) for ``sm_90a`` and the objects are linked into one shared library
 with a plain C interface, loaded with ``ctypes``.  The library lands in
 ``build/kernels/`` at the repo root (gitignored), named by a hash of the
 sources, so an edited kernel is rebuilt and an unchanged one is reused.
-Nothing is built at import: the first kernel launch builds.
+Nothing is built at import: the first kernel launch builds.  Processes
+that start together against a cold ``build/kernels/`` (one per rank
+under ``torchrun``) build one at a time: each takes an exclusive lock on
+``build/kernels/.lock`` (released by the kernel when its holder exits,
+so a killed build leaves no stale lock), and the ones that wait find the
+library there when they get it.  Objects and the temporary library carry
+the process id, and the library appears under its name only by an atomic
+``replace``.
 
 Every wrapper that launches a kernel adds one to its entry in ``LAUNCHES``
 right after the launch, so a run can show which kernels it went through.
@@ -16,6 +23,7 @@ Python); their launches are also counted per route in ``ROUTES``.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import math
 import os
@@ -118,16 +126,25 @@ def _source_hash() -> str:
 
 def build() -> Path:
     """Compile the sources (one nvcc each, in parallel) and link the
-    library; returns its path.  The compiler's register/spill report is
-    kept beside it in ``ptxas.log``."""
+    library, under the build directory's lock; returns its path.  The
+    compiler's register/spill report is kept beside it in ``ptxas.log``."""
     out = BUILD_DIR / f"libemcid_kernels_{_source_hash()}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():  # another process may have built it meanwhile
+            _compile_and_link(out)
+    return out
+
+
+def _compile_and_link(out: Path) -> None:
     nvcc = _nvcc()
+    tag = f".{os.getpid()}"
     procs = []
     for src in SOURCES:
-        obj = BUILD_DIR / (Path(src).stem + ".o")
+        obj = BUILD_DIR / (Path(src).stem + tag + ".o")
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(CSRC / src),
                "-o", str(obj)]
         procs.append((src, obj, subprocess.Popen(
@@ -142,14 +159,16 @@ def build() -> Path:
     (BUILD_DIR / "ptxas.log").write_text("\n".join(log))
     if failed:
         raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
-    tmp = out.with_suffix(".so.tmp")
+    tmp = out.with_name(out.name + tag + ".tmp")
     link = subprocess.run(
         [nvcc, "-shared", "-o", str(tmp), *[str(o) for _, o, _ in procs]],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for _, obj, _ in procs:
+        obj.unlink(missing_ok=True)
     if link.returncode:
+        tmp.unlink(missing_ok=True)
         raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
     tmp.replace(out)
-    return out
 
 
 def lib() -> ctypes.CDLL:

@@ -27,6 +27,7 @@ from typing import Any, Dict, Iterable, Iterator, Optional, Sequence
 import numpy as np
 import torch
 
+from emcid_torch.parallel.distributed import is_writer
 from emcid_torch.runtime import precise_matmuls
 
 
@@ -477,8 +478,9 @@ def tally(stat: Stat, dataset, cache=None, quiet=False, on_end=None,
     """Stream a dataset through a Stat with npz caching.  Returns an
     iterable of batches: iterate it fully and the stat is moved to the host
     and saved (after ``on_end()``, when given, which may fill it from
-    per-shard accumulators).  On a cache hit the stat is filled and the
-    iterable is empty."""
+    per-shard accumulators; under a process group by the first process
+    only).  On a cache hit the stat is filled and the iterable is
+    empty."""
     args = {k: kwargs[k] for k in ("sample_size",) if k in kwargs}
     cached_state = load_cached_state(cache, args, quiet=quiet)
     if cached_state is not None:
@@ -491,7 +493,7 @@ def tally(stat: Stat, dataset, cache=None, quiet=False, on_end=None,
         if on_end is not None:
             on_end()
         stat.to_("cpu")
-        if cache is not None:
+        if cache is not None and is_writer():
             save_cached_state(cache, stat, args)
 
     return wrapped_loader()

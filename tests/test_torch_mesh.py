@@ -103,8 +103,12 @@ def test_mesh_helpers(case):
         assert default_mesh() is None  # no card here
         assert default_mesh(disable=True) is None
     else:
-        with pytest.raises(NotImplementedError, match="M14b"):
-            multi_slice_mesh()
+        # one process: the (dcn, data) mesh of shape (1, entries)
+        m = multi_slice_mesh(devices=["cpu"] * 2)
+        assert (m.axis_names, m.shape, m.size, m.first) == (
+            ("dcn", "data"), (1, 2), 2, 0)
+        with pytest.raises(ValueError, match="do not divide"):
+            multi_slice_mesh(num_slices=3, devices=["cpu"] * 2)
 
 
 def test_generate_sharded_equals_unsharded(pc):

@@ -247,9 +247,9 @@ def test_variant_branches_run(pair, tmp_path, change):
 
 
 def test_unsupported_branches_raise(pair):
-    """What still waits raises: the multi-process mesh (ROADMAP M14b).  A
-    single-process mesh is accepted, and an objective the port has no loss
-    for still raises under it."""
+    """Both meshes are accepted (the single-process one and the (dcn,
+    data) one, here of one process), and an objective the port has no
+    loss for still raises under either."""
     import dataclasses
 
     import emcid_torch.hparams as thp
@@ -257,11 +257,10 @@ def test_unsupported_branches_raise(pair):
     from emcid_torch.parallel import get_mesh, multi_slice_mesh
 
     _, pc = pair
-    mesh = get_mesh(["cpu"] * 2)
     hp = dataclasses.replace(_hparams(thp), objective="contrastive")
-    with pytest.raises(NotImplementedError, match="M14b"):
-        multi_slice_mesh()
-    with pytest.raises(ValueError, match="objective"):
-        apply_emcid(pc, REQUESTS, hp, mesh=mesh, verbose=False)
-    with pytest.raises(ValueError, match="objective"):
-        compute_zs_for_requests(pc, REQUESTS, hp, mesh=mesh, verbose=False)
+    for mesh in (get_mesh(["cpu"] * 2), multi_slice_mesh(devices=["cpu"] * 2)):
+        with pytest.raises(ValueError, match="objective"):
+            apply_emcid(pc, REQUESTS, hp, mesh=mesh, verbose=False)
+        with pytest.raises(ValueError, match="objective"):
+            compute_zs_for_requests(pc, REQUESTS, hp, mesh=mesh,
+                                    verbose=False)
