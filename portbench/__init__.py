@@ -1,0 +1,1 @@
+"""The port's benchmark: one command runs one cell of BENCHMARK.json (see run.py)."""
