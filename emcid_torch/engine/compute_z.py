@@ -47,6 +47,7 @@ import torch
 
 from emcid_torch.models.scheduler import Schedule, add_noise
 from emcid_torch.parallel import gather, pad_to_multiple, replicate
+from emcid_torch.profiling import each, span
 from emcid_torch.text.token_range import find_token_range
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -422,7 +423,8 @@ class ZOptimizer:
         shards and takes the gradient of their losses, whose rows (and the
         losses) are then gathered from every process in shard order: every
         process steps the same delta.  The padding is dropped from every
-        output."""
+        output.  Each step is a ``stage1.step`` span, the pool's forwards
+        one ``stage1.pool`` span (``emcid_torch.profiling``)."""
         hp = self.hparams
         dev = batch.source_ids.device
         if gen is None:
@@ -460,8 +462,9 @@ class ZOptimizer:
         pools = None
         if (self.eps_pool and total and not replay and noise_loss
                 and not hp.use_sampled_noise):
-            pools = self._build_pool(shards, states, batch,
-                                     int(self.eps_pool), gen, padded)
+            with span("stage1.pool"):
+                pools = self._build_pool(shards, states, batch,
+                                         int(self.eps_pool), gen, padded)
         if replay:
             noise_override = torch.as_tensor(noise_override, device=dev).float()
             ts_override = torch.as_tensor(ts_override, device=dev).long()
@@ -471,7 +474,7 @@ class ZOptimizer:
         m2 = torch.zeros_like(delta)
         max_norm = hp.clamp_norm_factor * z0_norm
         losses = []
-        for step in range(total):
+        for step in each("stage1.step", range(total)):
             if pools is not None:
                 P = batch.source_ids.shape[1]
                 idx = padded(torch.randint(0, pools[0]["noisy"].shape[0],

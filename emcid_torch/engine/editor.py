@@ -52,6 +52,12 @@ from emcid_torch.engine.layer_stats import get_cov_text_encoder
 from emcid_torch.engine.training_images import training_latents_for_requests
 from emcid_torch.globals_cfg import STATS_DIR
 from emcid_torch.models.pipeline import SDComponents
+from emcid_torch.profiling import (
+    StepReport,
+    phase,
+    stage1_step_flops,
+    unet_fwd_flops,
+)
 
 EPS_DEST_POOL = 25  # product default pool size
 
@@ -168,6 +174,24 @@ def _image_embeddings(clip_align, imgs, C: int, P: int) -> np.ndarray:
     return emb.reshape(C, -1, P, emb.shape[-1])[:, 0].cpu().numpy()
 
 
+def stage1_report(components: SDComponents, optz: ZOptimizer, C: int,
+                  P: int, res: int, steps: int,
+                  seconds: float) -> StepReport:
+    """``StepReport`` of one Stage-1 block of ``C`` concepts x ``P``
+    prompts that ran ``steps`` steps in ``seconds`` at ``res`` px: two
+    UNet forwards' worth per step, plus the eps_dest pool's K forwards once
+    (spread over the steps)."""
+    # train_res shrinks the latent grid: count the grid Stage 1 ran on
+    lat = res // components.vae_scale
+    cfg = components.unet.config
+    K = int(optz.eps_pool)
+    per_step = stage1_step_flops(cfg, C, P, latent_hw=lat,
+                                 eps_dest_pooled=bool(K))
+    if K and steps:
+        per_step += K * unet_fwd_flops(cfg, C * P, lat) / steps
+    return StepReport(seconds=seconds, steps=steps, flops_per_step=per_step)
+
+
 def compute_zs_for_requests(
     components: SDComponents,
     requests: Sequence[Dict],
@@ -214,17 +238,15 @@ def compute_zs_for_requests(
             compute_z_text_encoder_global,
         )
 
-        t0 = time.time()
-        for i in missing:
-            z = compute_z_text_encoder_global(
-                components, requests[i], hparams, hparams.layers[-1],
-                gen=torch.Generator(device=dev).manual_seed(rng_seed + i),
-                verbose=verbose)
-            z_list[i] = z
-            if cache_name is not None:
-                save_z_cache(cache_name, requests[i], z, hparams, idx=i)
-        if timings is not None:
-            timings["sld"] = time.time() - t0
+        with phase("edit.sld", timings, "sld"):
+            for i in missing:
+                z = compute_z_text_encoder_global(
+                    components, requests[i], hparams, hparams.layers[-1],
+                    gen=torch.Generator(device=dev).manual_seed(rng_seed + i),
+                    verbose=verbose)
+                z_list[i] = z
+                if cache_name is not None:
+                    save_z_cache(cache_name, requests[i], z, hparams, idx=i)
         missing = []
     tia_scale = getattr(hparams, "txt_img_align_scale_factor", 0.0)
     tia_active = bool(tia_scale) and any(bool(r.get("txt_img_align"))
@@ -269,59 +291,47 @@ def compute_zs_for_requests(
             block = block + [block[-1]] * pad
             sync = torch.cuda.synchronize if dev.type == "cuda" else (
                 lambda: None)
-            t0 = time.time()
             dest_img_emb = tia_w = None
-            if tia_active:
-                flags = [bool(r.get("txt_img_align")) for r in block]
-                mean, logvar, imgs = training_latents_for_requests(
-                    components, block, hparams, use_dest_prompts=flags,
-                    return_images=True, **gen_kw)
-                dest_img_emb = _image_embeddings(clip_align, imgs,
-                                                 len(block),
-                                                 len(block[0]["prompts"]))
-                tia_w = np.asarray(flags[:len(idxs)] + [False] * pad,
-                                   np.float32)
-            else:
-                mean, logvar = training_latents_for_requests(
-                    components, block, hparams, **gen_kw)
-            sync()
-            t1 = time.time()
-            arrays, _, _ = prepare_concept_batch(components.tokenizer, block,
-                                                 hparams)
-            arrays["latents_mean"] = mean
-            arrays["latents_logvar"] = logvar
-            batch = concept_batch_to_device(arrays, dev)
-            gen = torch.Generator(device=dev).manual_seed(rng_seed + start)
-            zs, _, _, losses = optz.run(batch, gen, dest_img_emb=dest_img_emb,
-                                        tia_weight=tia_w, mesh=mesh)
-            zs = zs.cpu().numpy()[: len(idxs)]
-            t2 = time.time()
-            if timings is not None:
-                timings["generation"] = timings.get("generation", 0.0) + t1 - t0
-                timings["stage1"] = timings.get("stage1", 0.0) + t2 - t1
+            with phase("edit.train_images", timings, "generation"):
+                if tia_active:
+                    flags = [bool(r.get("txt_img_align")) for r in block]
+                    mean, logvar, imgs = training_latents_for_requests(
+                        components, block, hparams, use_dest_prompts=flags,
+                        return_images=True, **gen_kw)
+                    dest_img_emb = _image_embeddings(clip_align, imgs,
+                                                     len(block),
+                                                     len(block[0]["prompts"]))
+                    tia_w = np.asarray(flags[:len(idxs)] + [False] * pad,
+                                       np.float32)
+                else:
+                    mean, logvar = training_latents_for_requests(
+                        components, block, hparams, **gen_kw)
+                sync()
+            with phase("edit.stage1", timings, "stage1") as s1:
+                arrays, _, _ = prepare_concept_batch(components.tokenizer,
+                                                     block, hparams)
+                arrays["latents_mean"] = mean
+                arrays["latents_logvar"] = logvar
+                batch = concept_batch_to_device(arrays, dev)
+                gen = torch.Generator(device=dev).manual_seed(rng_seed + start)
+                zs, _, _, losses = optz.run(batch, gen,
+                                            dest_img_emb=dest_img_emb,
+                                            tia_weight=tia_w, mesh=mesh)
+                zs = zs.cpu().numpy()[: len(idxs)]
             for k, i in enumerate(idxs):
                 z_list[i] = zs[k]
                 if cache_name is not None:
                     save_z_cache(cache_name, requests[i], zs[k], hparams,
                                  idx=i)
             if verbose:
-                from emcid_torch.profiling import StepReport, stage1_step_flops
-
-                rep = StepReport(
-                    seconds=t2 - t0,
-                    steps=max(hparams.v_num_grad_steps, 1),
-                    flops_per_step=stage1_step_flops(
-                        components.unet.config, len(block),
-                        len(block[0]["prompts"]),
-                        # train_res shrinks the latent grid: report the
-                        # grid Stage 1 ran on, not the native size
-                        latent_hw=res // components.vae_scale,
-                        eps_dest_pooled=bool(optz.eps_pool)))
+                rep = stage1_report(components, optz, len(block),
+                                    len(block[0]["prompts"]), res,
+                                    len(losses), s1.seconds)
                 final = (f"{float(losses[-1]):.5f}" if len(losses)
                          else "n/a (0 steps)")
                 print(f"stage1 block {start // block_size}: {len(idxs)} "
-                      f"concepts in {rep.seconds:.1f}s ({rep}; incl. image "
-                      f"gen), final loss {final}")
+                      f"concepts, {rep.steps} steps in {rep.seconds:.1f}s "
+                      f"({rep}), final loss {final}")
     stacked = np.stack([np.asarray(z) for z in z_list])
     if stacked.ndim == 2:
         stacked = stacked[:, None, :]
@@ -361,25 +371,27 @@ def apply_emcid(
     else computed and cached); ``add_uce_edit`` follows Stage 2 with the
     UCE edit of the UNet's cross-attention for the same concepts (dest
     " " where a request has none).  ``mesh`` shards the covariance sweep's
-    caption axis, the training images and Stage 1's concept axis."""
+    caption axis, the training images and Stage 1's concept axis.  Each
+    phase is a span ``edit.<phase>`` (``edit.train_images`` for
+    "generation"; ``emcid_torch.profiling.phase``), its seconds added to
+    ``timings``."""
     check_supported(hparams, mesh)
     timings = {} if timings is None else timings
     dev = components.device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    t0 = time.time()
-    covs = resolve_covariances_for(
-        components.text_encoder, components.tokenizer, hparams,
-        stats_dir=stats_dir, captions=stats_captions, mesh=mesh,
-        verbose=verbose)
-    sync()
-    timings["covariances"] = time.time() - t0
+    t_start = time.perf_counter()
+    with phase("edit.covariances", timings, "covariances"):
+        covs = resolve_covariances_for(
+            components.text_encoder, components.tokenizer, hparams,
+            stats_dir=stats_dir, captions=stats_captions, mesh=mesh,
+            verbose=verbose)
+        sync()
     fim = None
     if getattr(hparams, "use_ewc", False):
-        t = time.time()
-        fim = resolve_fim(components, hparams, cov=covs[-1], fim_dir=fim_dir,
-                          mesh=mesh, verbose=verbose)
-        sync()
-        timings["fim"] = time.time() - t
+        with phase("edit.fim", timings, "fim"):
+            fim = resolve_fim(components, hparams, cov=covs[-1],
+                              fim_dir=fim_dir, mesh=mesh, verbose=verbose)
+            sync()
     zs = compute_zs_for_requests(
         components, requests, hparams, cache_name=cache_name,
         block_size=block_size, num_inference_steps=num_inference_steps,
@@ -388,25 +400,25 @@ def apply_emcid(
         train_steps=train_steps, eps_dest_pool=eps_dest_pool,
         z_sched=z_sched, cfg_interval=cfg_interval, train_res=train_res,
         rng_seed=rng_seed, timings=timings, verbose=verbose)
-    t1 = time.time()
-    deltas, new_text = execute_emcid_text_encoder(
-        components.text_encoder, components.tokenizer, requests, hparams,
-        zs=zs, covs=covs, mom2_weight=mom2_weight, edit_weight=edit_weight,
-        solve_method=solve_method, verbose=verbose)
-    sync()
-    timings["stage2"] = time.time() - t1
+    with phase("edit.stage2", timings, "stage2"):
+        deltas, new_text = execute_emcid_text_encoder(
+            components.text_encoder, components.tokenizer, requests, hparams,
+            zs=zs, covs=covs, mom2_weight=mom2_weight,
+            edit_weight=edit_weight, solve_method=solve_method,
+            verbose=verbose)
+        sync()
     edited = components.replace_text_encoder(new_text)
     if getattr(hparams, "add_uce_edit", False):
         from emcid_torch.engine.uce import edit_model_uce
 
-        t = time.time()
-        edited = edit_model_uce(edited, [r["source"] for r in requests],
-                                [r.get("dest") or " " for r in requests])
-        sync()
-        timings["uce"] = time.time() - t
+        with phase("edit.uce", timings, "uce"):
+            edited = edit_model_uce(edited, [r["source"] for r in requests],
+                                    [r.get("dest") or " " for r in requests])
+            sync()
         if verbose:
             print("applied UCE cross-attn hybrid edit")
     if verbose:
+        took = time.perf_counter() - t_start
         print(f"Edited {len(requests)} concept(s) across layers "
-              f"{list(hparams.layers)} in {time.time() - t0:.1f}s")
+              f"{list(hparams.layers)} in {took:.1f}s")
     return edited, deltas

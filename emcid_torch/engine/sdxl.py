@@ -40,7 +40,6 @@ Stage 2: two independent one-pass inserts, encoder 1 with ``layers`` /
 
 from __future__ import annotations
 
-import time
 from pathlib import Path
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -63,6 +62,7 @@ from emcid_torch.models.sdxl import (
 )
 from emcid_torch.parallel import gather, replicate
 from emcid_torch.parallel.distributed import is_writer
+from emcid_torch.profiling import each, phase
 
 
 class SDXLDraws(NamedTuple):
@@ -195,7 +195,7 @@ def compute_z_sdxl_text_encoders(
     wd = float(hp.v_weight_decay)
     total = int(hp.v_num_grad_steps)
     step_losses = []
-    for step in range(total):
+    for step in each("stage1.step", range(total)):
         g1, g2 = torch.zeros_like(d1), torch.zeros_like(d2)
         concept_loss = torch.zeros(C, device=dev)
         for c in range(C):
@@ -440,34 +440,32 @@ def apply_emcid_to_sdxl_text_encoders(
     dev = components.device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     zs_1, zs_2, missing = load_z_pairs(requests, cache_name, hparams)
-    t0 = time.time()
-    if missing:
-        if latents_mean is None or latents_logvar is None:
-            raise ValueError("z vectors to compute but no training-image "
-                             "posterior given")
-        idx = torch.as_tensor(missing, device=torch.as_tensor(
-            latents_mean).device)
-        z1, z2 = compute_z_sdxl_text_encoders(
-            components, [requests[i] for i in missing], hparams,
-            torch.as_tensor(latents_mean)[idx],
-            torch.as_tensor(latents_logvar)[idx],
-            gen=torch.Generator(device=dev).manual_seed(rng_seed),
-            height=height, width=width, mesh=mesh, verbose=verbose)
-        for k, i in enumerate(missing):
-            zs_1[i], zs_2[i] = z1[k], z2[k]
-            if cache_name is not None and is_writer():
-                p1, p2 = z_cache_paths(cache_name, requests[i], hparams)
-                p1.parent.mkdir(exist_ok=True, parents=True)
-                np.savez(p1, v_star=z1[k])
-                np.savez(p2, v_star=z2[k])
-    sync()
-    timings["stage1"] = time.time() - t0
-    t0 = time.time()
-    out = execute_emcid_sd_xl_text_encoders(
-        components, requests, hparams, np.stack(zs_1), np.stack(zs_2),
-        covs_1, covs_2, mom2_weight=mom2_weight,
-        mom2_weight_2=mom2_weight_2, edit_weight=edit_weight,
-        verbose=verbose)
-    sync()
-    timings["stage2"] = time.time() - t0
+    with phase("edit.stage1", timings, "stage1"):
+        if missing:
+            if latents_mean is None or latents_logvar is None:
+                raise ValueError("z vectors to compute but no training-image "
+                                 "posterior given")
+            idx = torch.as_tensor(missing, device=torch.as_tensor(
+                latents_mean).device)
+            z1, z2 = compute_z_sdxl_text_encoders(
+                components, [requests[i] for i in missing], hparams,
+                torch.as_tensor(latents_mean)[idx],
+                torch.as_tensor(latents_logvar)[idx],
+                gen=torch.Generator(device=dev).manual_seed(rng_seed),
+                height=height, width=width, mesh=mesh, verbose=verbose)
+            for k, i in enumerate(missing):
+                zs_1[i], zs_2[i] = z1[k], z2[k]
+                if cache_name is not None and is_writer():
+                    p1, p2 = z_cache_paths(cache_name, requests[i], hparams)
+                    p1.parent.mkdir(exist_ok=True, parents=True)
+                    np.savez(p1, v_star=z1[k])
+                    np.savez(p2, v_star=z2[k])
+        sync()
+    with phase("edit.stage2", timings, "stage2"):
+        out = execute_emcid_sd_xl_text_encoders(
+            components, requests, hparams, np.stack(zs_1), np.stack(zs_2),
+            covs_1, covs_2, mom2_weight=mom2_weight,
+            mom2_weight_2=mom2_weight_2, edit_weight=edit_weight,
+            verbose=verbose)
+        sync()
     return out

@@ -22,6 +22,8 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from emcid_torch.profiling import each
+
 
 @dataclass(frozen=True)
 class Schedule:
@@ -223,7 +225,8 @@ def run_sampler(sampler: str, schedule: Schedule,
                 n_head: Optional[int] = None) -> torch.Tensor:
     """The inference loop.  ``unet_eps(lat, t)`` is the (CFG-merged) noise
     model; steps from ``n_head`` on use ``unet_eps_tail`` (the CFG-interval
-    split), with the sampler state carried across the boundary."""
+    split), with the sampler state carried across the boundary.  Each
+    evaluation and its transfer is one ``sampler.step`` span."""
     ts, ts_prev = list(map(int, ts)), list(map(int, ts_prev))
     ts_eval = ts
     if sampler == "pndm" and len(ts) > 1:
@@ -240,7 +243,7 @@ def run_sampler(sampler: str, schedule: Schedule,
         n_head = max(int(n_head), 1)
 
     if sampler == "ddim":
-        for i, (t, tp) in enumerate(zip(ts, ts_prev)):
+        for i, (t, tp) in each("sampler.step", enumerate(zip(ts, ts_prev))):
             fn = unet_eps if i < n_head else unet_eps_tail
             latents = ddim_step(schedule, latents, fn(latents, t), t, tp)
         return latents
@@ -250,7 +253,8 @@ def run_sampler(sampler: str, schedule: Schedule,
         state, step = dpmpp_init(), dpmpp_step
     else:
         raise ValueError(f"unknown sampler {sampler!r}")
-    for i, (te, t, tp) in enumerate(zip(ts_eval, ts, ts_prev)):
+    for i, (te, t, tp) in each("sampler.step",
+                               enumerate(zip(ts_eval, ts, ts_prev))):
         fn = unet_eps if i < n_head else unet_eps_tail
         state, latents = step(schedule, state, latents, fn(latents, te), t, tp)
     return latents

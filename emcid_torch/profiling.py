@@ -1,16 +1,176 @@
-"""Step-time and MFU accounting: analytic FLOP counts of the UNet forward
-and of one Stage-1 step, and ``StepReport``.
+"""Program spans, step-time and MFU accounting: ``span``/``phase`` and
+their ``recording``, analytic FLOP counts of the UNet forward and of one
+Stage-1 step, and ``StepReport``.
 
-Counterpart of ``emcid_tpu/profiling.py``.  The counts are useful work:
-attention scores unpadded, GroupNorm, SiLU and the time/added-condition
-MLPs (<1%) ignored.  A run divides them by its measured seconds for
-TFLOP/s, and ``StepReport.mfu`` by the card's peak, ``PEAK_TFLOPS``.
+Spans.  ``span(name)`` marks a stretch of host code where the work of one
+thing happens (``stage1.pool``), ``each(name, items)`` each iteration of
+a loop (``stage1.step``, ``sampler.step``), ``phase`` the ``edit.*``
+phases of ``apply_emcid``.  With neither ``recording()`` nor a
+``torch.profiler`` active ``span`` returns one shared no-op object.  Under
+``recording()`` a span keeps its host edges (``perf_counter_ns``) and, on a
+CUDA device, a pair of timing events at its edges, never synchronizing:
+``Recorder.summary()`` reads the events after the caller's own
+synchronize.  Under a ``torch.profiler`` it also opens
+``record_function(name)``, so that the span lands in the profiler's trace
+on its own clock, beside the device operations it launched.
+``phase(name, timings, key)`` is a span that is always timed on the host
+and adds its seconds to ``timings[key]``.
+
+Counts (counterpart of ``emcid_tpu/profiling.py``).  The counts are useful
+work: attention scores unpadded, GroupNorm, SiLU and the time/added-
+condition MLPs (<1%) ignored.  A run divides them by its measured seconds
+for TFLOP/s, and ``StepReport.mfu`` by the card's peak, ``PEAK_TFLOPS``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Iterable, Iterator, List, Optional, TypeVar
+
+import torch
+import torch.autograd.profiler as _autograd_profiler
+
+T = TypeVar("T")
+
+
+class Recorder:
+    """The spans closed inside a ``recording()`` scope, in closing order."""
+
+    def __init__(self, device=None):
+        dev = torch.device(device) if device is not None else (
+            torch.device("cuda") if torch.cuda.is_available()
+            else torch.device("cpu"))
+        self.device = dev if dev.type == "cuda" else None
+        self.spans: List[Span] = []
+
+    def summary(self) -> Dict[str, Dict]:
+        """Per span name: ``n``, ``host_s`` (each span's host-clock
+        seconds, in closing order) and ``device_s`` (the same spans on the
+        device clock, between their events; None without a CUDA device).
+        Call it after synchronizing the device."""
+        out: Dict[str, Dict] = {}
+        for s in self.spans:
+            d = out.setdefault(s.name, {
+                "n": 0, "host_s": [],
+                "device_s": None if self.device is None else []})
+            d["n"] += 1
+            d["host_s"].append(s.seconds)
+            if d["device_s"] is not None:
+                d["device_s"].append(s.ev0.elapsed_time(s.ev1) * 1e-3)
+        return out
+
+
+_RECORDER: Optional[Recorder] = None
+
+
+@contextlib.contextmanager
+def recording(device=None) -> Iterator[Recorder]:
+    """Record every span closed in the scope; yields the ``Recorder``.
+    Events are taken on ``device`` (default: the CUDA device when there is
+    one).  A recording opened inside another hands its spans to the outer
+    one when it closes."""
+    global _RECORDER
+    outer, rec = _RECORDER, Recorder(device)
+    _RECORDER = rec
+    try:
+        yield rec
+    finally:
+        _RECORDER = outer
+        if outer is not None:
+            outer.spans.extend(rec.spans)
+
+
+class _Off:
+    """The span of a scope with neither a recording nor a profiler."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+OFF = _Off()
+
+
+class Span:
+    """One span: host edges always, device events under a recording on a
+    CUDA device, a profiler range under a profiler."""
+
+    __slots__ = ("name", "rec", "t0", "t1", "ev0", "ev1", "fn")
+
+    def __init__(self, name: str, rec: Optional[Recorder]):
+        self.name, self.rec = name, rec
+        self.ev0 = self.ev1 = self.fn = None
+
+    def __enter__(self):
+        if _autograd_profiler._is_profiler_enabled:
+            self.fn = _autograd_profiler.record_function(self.name)
+            self.fn.__enter__()
+        if self.rec is not None and self.rec.device is not None:
+            self.ev0 = torch.cuda.Event(enable_timing=True)
+            self.ev0.record(torch.cuda.current_stream(self.rec.device))
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.t1 = time.perf_counter_ns()
+        if self.ev0 is not None:
+            self.ev1 = torch.cuda.Event(enable_timing=True)
+            self.ev1.record(torch.cuda.current_stream(self.rec.device))
+        if self.fn is not None:
+            self.fn.__exit__(*exc)
+        if self.rec is not None:
+            self.rec.spans.append(self)
+        return False
+
+    @property
+    def seconds(self) -> float:
+        """Host-clock seconds between the edges."""
+        return (self.t1 - self.t0) * 1e-9
+
+
+def span(name: str):
+    """A context object for the work of ``name``: ``OFF`` unless a
+    recording or a profiler is on."""
+    rec = _RECORDER
+    if rec is None and not _autograd_profiler._is_profiler_enabled:
+        return OFF
+    return Span(name, rec)
+
+
+def each(name: str, items: Iterable[T]) -> Iterator[T]:
+    """``items``, each iteration of the loop that consumes them inside the
+    span ``name``: ``for step in each("stage1.step", range(n)):``."""
+    for x in items:
+        with span(name):
+            yield x
+
+
+class _Phase(Span):
+    __slots__ = ("timings", "key")
+
+    def __init__(self, name, timings, key):
+        super().__init__(name, _RECORDER)
+        self.timings, self.key = timings, key
+
+    def __exit__(self, *exc):
+        super().__exit__(*exc)
+        if self.timings is not None:
+            self.timings[self.key] = (self.timings.get(self.key, 0.0)
+                                      + self.seconds)
+        return False
+
+
+def phase(name: str, timings: Optional[Dict[str, float]], key: str) -> Span:
+    """The span ``name``, always timed on the host: on exit its seconds are
+    added to ``timings[key]`` (when ``timings`` is given)."""
+    return _Phase(name, timings, key)
+
 
 # dense bf16 tensor-core peak of one NVIDIA H100 SXM (data sheet)
 PEAK_TFLOPS = 989.0
