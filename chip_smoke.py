@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only   # phases 1-2, no device line
+    python3 chip_smoke.py --stage1-graphs  # phases 1 and 3b
 
 (``--dcn-worker SPEC`` is one rank of phase 7f, which the script starts
 itself under ``python -m torch.distributed.run``.)
@@ -30,6 +31,11 @@ Phases, each printing one JSON line:
    deltas, only the fc2 weights of the edited layers changed, the on-card
    Stage-2 solve against the host float64 one, the tensor-core routes of
    K1-K4 taken and no float-FMA route);
+3b. Stage 1 replayed from CUDA graphs against the same blocks eager on
+   that pipeline (``stage1_graphs_path``): at the ``b8`` and ``b1`` bench
+   shapes and the bench warm-up's, z both ways, the K1-K4 launches per
+   route, the Stage-1 counters (steps replayed, eager steps, captures),
+   the step's milliseconds and the peak memory;
 4. the variant paths on that pipeline, each with the launch count of every
    kernel and route during its run, its seconds and checks of what comes
    out: (a) EWC with the UCE hybrid (the Fisher diagonal computed over 4
@@ -203,6 +209,7 @@ import io
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -980,6 +987,149 @@ def main_path(torch, stats_dir, failures):
     if not row["ok"]:
         failures.append(f"main path: {row}")
     return launches, comps
+
+
+@contextlib.contextmanager
+def eager_stage1():
+    """Every Stage-1 step inside the scope runs eagerly, as where a graph
+    is not safe (``compute_z.graph_blockers``)."""
+    from emcid_torch.engine import compute_z
+
+    orig = compute_z.graph_blockers
+    compute_z.graph_blockers = lambda *a, **k: ["eager"]
+    try:
+        yield
+    finally:
+        compute_z.graph_blockers = orig
+
+
+def stage1_block(torch, comps, C, hp, pool, seed, eager):
+    """One Stage-1 block of ``C`` concepts x 3 prompts at 384 px (48x48
+    latents drawn from ``seed``) on the full-width pipeline, under a
+    recording: its z, z0, seconds, peak memory, the K1-K4 launches per
+    route, the span summary and the Stage-1 counters."""
+    from emcid_torch import profiling
+    from emcid_torch.engine import compute_z
+    from emcid_torch.engine.compute_z import (
+        concept_batch_to_device,
+        prepare_concept_batch,
+    )
+    from emcid_torch.engine.editor import make_optimizer
+    from emcid_torch.ops import _build
+
+    reqs = [{"prompts": REQUESTS[0]["prompts"], "source": f"w{2 * i}",
+             "dest": f"w{2 * i + 1}"} for i in range(C)]
+    arrays, _, _ = prepare_concept_batch(comps.tokenizer, reqs, hp)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (C, 1, 3, 48, 48, 4)
+    arrays["latents_mean"] = torch.randn(shape, generator=g, device="cuda")
+    arrays["latents_logvar"] = torch.full(shape, -6.0, device="cuda")
+    batch = concept_batch_to_device(arrays, "cuda")
+    optz = make_optimizer(comps, hp, eps_pool=pool, lr_sched="cosine")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    with contextlib.ExitStack() as stack:
+        if eager:
+            stack.enter_context(eager_stage1())
+        rec = stack.enter_context(profiling.recording("cuda"))
+        t0 = time.time()
+        zs, _, z0, _ = optz.run(batch, torch.Generator(
+            device="cuda").manual_seed(seed + 1))
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+    summ = rec.summary()
+    step = summ.get("stage1.step", {})
+    sg = [v for per_text in compute_z._STEP_GRAPHS.values()
+          for per_key in per_text.values() for k, v in per_key.items()
+          if k[1] == 3 * C and v.eps is not None]
+    return dict(
+        z=zs.reshape(C, -1), z0=z0.reshape(C, -1), seconds=seconds,
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        reserved_gib=torch.cuda.memory_reserved() / 2 ** 30,
+        routes={k: dict(_build.ROUTES[k]) for k in ATTENTION},
+        steps=step.get("n", 0),
+        step_ms=1e3 * statistics.median(step["device_s"]),
+        step_host_ms=1e3 * statistics.median(step["host_s"]),
+        counts={k: summ[k]["n"] for k in (
+            "stage1.graph_steps", "stage1.eager_steps", "stage1.capture")
+            if k in summ},
+        capture_s=sum(summ.get("stage1.capture", {}).get("host_s", [])),
+        replay=None if eager or not sg else {
+            "graph_launches": sg[0].text.graphs + sg[0].eps.graphs,
+            "eager_calls": sg[0].text.eager_calls + sg[0].eps.eager_calls})
+
+
+# |z_graphs - z_eager| over |z_eager - z0| per concept where the bits
+# differ (the capture's cuDNN and cuBLAS calls may pick other kernels)
+STAGE1_GRAPHS_TOL = 1e-2
+
+
+def stage1_graphs_path(torch, comps, failures):
+    """Stage 1 with the step's gradient pass replayed from CUDA graphs
+    against the same blocks eager, on the full-width bf16 pipeline: at
+    ``b8``'s shape (8 concepts, the K=25 pool, 30 cosine steps), eager,
+    graphs twice (the first captures, the second only replays), eager
+    again; at ``b1``'s (one concept), eager then graphs twice; and the
+    set-up warm-up's shape (8 concepts, 2 steps, no pool: each step's
+    fresh draws enter the graphs through a contiguous copy) both ways.
+    Per row: z against the eager block (bitwise, else within
+    ``STAGE1_GRAPHS_TOL`` of the step |z - z0|), the K1-K4 launches per
+    route (equal both ways, no ``fma``), the Stage-1 counters, the
+    step's device and host milliseconds and the peak memory."""
+    rows = []
+
+    def gap(a, b):
+        return float(((a["z"] - b["z"]).norm(dim=-1) / (
+            b["z"] - b["z0"]).norm(dim=-1).clamp_min(1e-30)).max())
+
+    # shape, concepts, hparams, pool, blocks in order (E eager, G graphs),
+    # captures in the first graphs block (the warm-up's shape is b8's)
+    for label, C, hp, pool, order, captures in (
+            ("b8", 8, bench_hparams(50), 25, "EGGE", 1),
+            ("b1", 1, bench_hparams(50), 25, "EGG", 1),
+            ("warmup_b8", 8, bench_hparams(2), 0, "EG", 0)):
+        runs = [stage1_block(torch, comps, C, hp, pool, 11, k == "E")
+                for k in order]
+        eager, graphs = runs[0], runs[order.index("G")]
+        last = runs[order.rindex("G")]
+        steps = eager["steps"]
+        row = dict(
+            phase="stage1_graphs", shape=label, concepts=C, steps=steps,
+            eps_pool=pool, order=order,
+            z_bitwise=bool(torch.equal(last["z"], eager["z"])),
+            z_gap=gap(last, eager),
+            z_gap_first_capture=gap(graphs, eager),
+            eager_bitwise_again=(bool(torch.equal(runs[-1]["z"], eager["z"]))
+                                 if order.endswith("E") and len(order) > 2
+                                 else None),
+            routes_eager=eager["routes"], routes_graphs=last["routes"],
+            counts=[r["counts"] for r in runs],
+            capture_s=[r["capture_s"] for r in runs],
+            replay_per_step=last["replay"],
+            step_ms={k: r["step_ms"] for k, r in zip(order, runs)},
+            step_host_ms={k: r["step_host_ms"] for k, r in zip(order, runs)},
+            block_s=[r["seconds"] for r in runs],
+            peak_gib=[r["peak_gib"] for r in runs],
+            reserved_gib=[r["reserved_gib"] for r in runs])
+        eager_only = [r["counts"] for r, k in zip(runs, order) if k == "E"]
+        row["ok"] = (
+            (row["z_bitwise"] or row["z_gap"] <= STAGE1_GRAPHS_TOL)
+            and last["routes"] == eager["routes"]
+            and all(r[k]["fma"] == 0 for r in (eager["routes"],
+                                               last["routes"])
+                    for k in ATTENTION)
+            and all(c.get("stage1.eager_steps") == steps
+                    and "stage1.graph_steps" not in c for c in eager_only)
+            and last["counts"].get("stage1.graph_steps") == steps
+            and "stage1.eager_steps" not in last["counts"]
+            and graphs["counts"].get("stage1.capture", 0) == captures
+            and (last is graphs or "stage1.capture" not in last["counts"]))
+        emit(row)
+        rows.append(row)
+        if not row["ok"]:
+            failures.append(f"stage1 graphs {label}: {row}")
+    return rows
 
 
 VARIANT_REQUESTS = REQUESTS[:2]
@@ -4558,6 +4708,16 @@ def main(argv=None) -> int:
         walls[label] = now - lap_t[0]
         lap_t[0] = now
 
+    if "--stage1-graphs" in argv:
+        from emcid_torch.models.loader import build_random_pipeline
+
+        comps = build_random_pipeline("sd-v1.4", dtype=torch.bfloat16,
+                                      seed=0, device="cuda")
+        with environ(**dict.fromkeys(KNOBS)):
+            stage1_graphs_path(torch, comps, failures)
+        for f in failures:
+            print(f"FAILED: {f}", file=sys.stderr)
+        return 1 if failures else 0
     rows = kernel_phases(torch, failures)
     lap("build_and_kernels")
     if kernels_only:
@@ -4570,6 +4730,9 @@ def main(argv=None) -> int:
     try:
         _, comps = main_path(torch, stats_dir, failures)
         lap("main_path")
+        with environ(**dict.fromkeys(KNOBS)):
+            stage1_graphs_path(torch, comps, failures)
+        lap("stage1_graphs_path")
         variants_path(torch, comps, stats_dir, failures)
         seam_check(torch, comps, failures)
         lap("variants_path")

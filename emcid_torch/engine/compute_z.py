@@ -34,11 +34,32 @@ Record/replay: ``run(noise_override=, ts_override=)`` takes the noise
 makes the optimization comparable with the JAX package's given the same
 training images.  With an override the eps_dest pool and the cosine
 schedule do not engage (as in JAX).
+
+CUDA graphs.  On the card a step's gradient pass replays captured graphs
+(``ops/graphs``): the text model's forward with the injected delta and
+its backward into the delta, and the UNet's eps with its backward into
+the context.  The K1-K4 attention calls inside them stay eager, between
+the replays, through their wrappers (every launch is still one call that
+``_build.ROUTES`` counts and a profiler wrapper sees); everything else of
+those two passes replays, one graph per stretch between two such calls.
+The draws, the pool index, the loss terms, Adam, the ball projection and
+the loss record stay eager as they were.  The graphs engage only where a
+step can be seen to be safe to replay (``graph_blockers``): CUDA models,
+no mesh, grad on, no forward or backward hooks on either model, the fused
+norm kernels off, and a noise loss.  Everywhere else the step is eager as
+before.  One capture serves every later block of the same models at the
+same shapes (``StepGraphs``, keyed weakly on the modules, not on the
+hparams, so a warm-up block captures what later blocks replay; the
+captures go with their modules).  Under a ``profiling.recording`` the
+steps count as ``stage1.graph_steps`` or ``stage1.eager_steps``, and
+each capture is a ``stage1.capture`` span.
 """
 
 from __future__ import annotations
 
 import os
+import warnings
+import weakref
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -46,8 +67,11 @@ import numpy as np
 import torch
 
 from emcid_torch.models.scheduler import Schedule, add_noise
+from emcid_torch.models.unet import _fused_gn, _fused_ln
+from emcid_torch.ops import graphs as cuda_graphs
+from emcid_torch.ops.attention import _flash_min_seq
 from emcid_torch.parallel import gather, pad_to_multiple, replicate
-from emcid_torch.profiling import each, span
+from emcid_torch.profiling import count, each, span
 from emcid_torch.text.token_range import find_token_range
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -190,6 +214,90 @@ def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
 def _mse(a, b, C: int) -> torch.Tensor:
     """Per-concept mean squared difference (C,) of (C*..., ...) tensors."""
     return (a - b).pow(2).reshape(C, -1).mean(dim=1)
+
+
+def _hooked(module: torch.nn.Module) -> bool:
+    """Whether a forward or backward hook would run in ``module``'s
+    calls."""
+    glob = torch.nn.modules.module
+    if any(getattr(glob, name, None) for name in (
+            "_global_forward_hooks", "_global_forward_pre_hooks",
+            "_global_backward_hooks", "_global_backward_pre_hooks")):
+        return True
+    return any(m._forward_hooks or m._forward_pre_hooks or m._backward_hooks
+               or m._backward_pre_hooks for m in module.modules())
+
+
+def graph_blockers(text_model, unet, mesh=None) -> List[str]:
+    """Why a Stage-1 step of these models cannot replay CUDA graphs here:
+    ``"device"`` (not both on one CUDA device), ``"mesh"``, ``"no grad"``,
+    ``"hooks"`` (forward or backward hooks on either model, as
+    ``unet_taps`` and ``unet_inject`` register), ``"fused norms"`` (the
+    K5/K6 knobs: those kernels count their launches in Python, which a
+    replay would skip).  Empty where it can."""
+    why = []
+    dev = next(unet.parameters()).device
+    if dev.type != "cuda" or next(text_model.parameters()).device != dev:
+        why.append("device")
+    if mesh is not None:
+        why.append("mesh")
+    if not torch.is_grad_enabled():
+        why.append("no grad")
+    if _hooked(text_model) or _hooked(unet):
+        why.append("hooks")
+    if _fused_gn() != "0" or _fused_ln():
+        why.append("fused norms")
+    return why
+
+
+class StepGraphs:
+    """A Stage-1 step's gradient pass at one shape, captured at the first
+    step that wants it: ``text(ids, inj)`` -> (hidden, pooled) with the
+    delta injected at the optimizer's layer, and ``eps(noisy, t, ctx)`` ->
+    (eps,), each a ``cuda_graphs.Captured``.  A failed capture leaves
+    ``failed`` set, and the steps of this shape run eagerly."""
+
+    def __init__(self):
+        self.text = self.eps = None
+        self.failed = False
+
+    def ready(self, optz: "ZOptimizer", sh: "_Shard", ids, inj, noisy,
+              t) -> bool:
+        """Capture on the first call; whether the step replays."""
+        if self.text is None and not self.failed:
+            self._capture(optz, sh, ids, inj, noisy, t)
+        return not self.failed
+
+    def _capture(self, optz, sh, ids, inj, noisy, t) -> None:
+        text, unet, layer = sh.text, sh.unet, optz.layer
+        with span("stage1.capture"):
+            try:
+                self.text = cuda_graphs.capture(
+                    lambda i, d: tuple(text(i, inject_layer=layer,
+                                            inject_delta=d)[:2]), (ids, inj))
+                ctx = self.text(ids, inj)[0].detach().requires_grad_()
+                self.eps = cuda_graphs.capture(
+                    lambda x, s, c: ZOptimizer._eps(unet, x, s, c),
+                    (noisy, t, ctx))
+            except RuntimeError as e:
+                warnings.warn("Stage 1 runs eagerly at this shape: its "
+                              f"CUDA-graph capture failed ({e})")
+                self.text = self.eps = None
+                self.failed = True
+            torch.cuda.synchronize(sh.device)
+            # the warm-up's blocks, cached for the capture's side stream
+            torch.cuda.empty_cache()
+
+
+# captured steps by UNet, then text model, then shape; weakly keyed, so
+# that a module's captures go with it
+_STEP_GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def step_graphs(text_model, unet, key: Tuple) -> StepGraphs:
+    """The ``StepGraphs`` of these modules at ``key``, new or cached."""
+    by_text = _STEP_GRAPHS.setdefault(unet, weakref.WeakKeyDictionary())
+    return by_text.setdefault(text_model, {}).setdefault(key, StepGraphs())
 
 
 class _Shard(NamedTuple):
@@ -344,21 +452,40 @@ class ZOptimizer:
             pools.append({k: torch.stack(v) for k, v in pool.items()})
         return pools
 
+    def _graph_key(self, batch: ConceptBatch) -> Tuple:
+        """What a captured step is specific to, besides its modules."""
+        C, P, S = batch.source_ids.shape
+        h, w = batch.latents_mean.shape[3:5]
+        return (self.layer, C * P, S, self.text_model.config.hidden_size,
+                h, w, next(self.text_model.parameters()).dtype,
+                next(self.unet.parameters()).dtype,
+                batch.source_ids.device, _flash_min_seq(),
+                os.environ.get("EMCID_TPU_NO_FLASH"))
+
     def _loss(self, sh: _Shard, st, delta, noisy, t, noise, eps_dest,
-              eps_src) -> torch.Tensor:
+              eps_src, graphs: Optional[StepGraphs] = None) -> torch.Tensor:
         """Per-concept Stage-1 loss (C_s,) of one shard at ``delta`` (its
-        rows, on its device)."""
+        rows, on its device); the text model and the UNet replay
+        ``graphs`` where given and ready."""
         hp = self.hparams
         b, C = st["batch"], st["C"]
         P, S = b.source_ids.shape[1:]
         H = delta.shape[-1]
         inj = torch.einsum("ctps,cth->cpsh", b.inject_mask, delta)
-        edited = sh.text(st["src_ids"], inject_layer=self.layer,
-                         inject_delta=inj.reshape(C * P, S, H))
+        inj = inj.reshape(C * P, S, H)
+        if graphs is not None and graphs.ready(self, sh, st["src_ids"], inj,
+                                               noisy, t):
+            hidden, pooled = graphs.text(st["src_ids"], inj)
+        else:
+            graphs = None
+            edited = sh.text(st["src_ids"], inject_layer=self.layer,
+                             inject_delta=inj)
+            hidden, pooled = edited.last_hidden_state, edited.pooled_output
         if hp.no_noise_loss:
             loss = torch.zeros(C, device=sh.device)
         else:
-            eps_edit = self._eps(sh.unet, noisy, t, edited.last_hidden_state)
+            eps_edit = (self._eps(sh.unet, noisy, t, hidden) if graphs is None
+                        else graphs.eps(noisy, t, hidden)[0])
             if hp.objective == "esd":
                 mu = (float(hp.esd_mu) if hp.esd_mu not in (None, "None")
                       else 1.0)
@@ -380,18 +507,17 @@ class ZOptimizer:
         if hp.cal_text_repr_loss:
             if hp.align_object_token:
                 ci, pi = st["ci"], st["pi"]
-                e_h = edited.last_hidden_state.float().reshape(C, P, S, H)
+                e_h = hidden.float().reshape(C, P, S, H)
                 d_h = st["dest_hidden"].float().reshape(C, P, S, H)
                 talign = _mse(e_h[ci, pi, b.source_lookup],
                               d_h[ci, pi, b.dest_lookup], C)
             else:  # pooler alignment (the shipped default)
-                talign = _mse(edited.pooled_output.float().reshape(C, P, H),
+                talign = _mse(pooled.float().reshape(C, P, H),
                               st["dest_pooled"], C)
             loss = loss + hp.text_repr_loss_scale_factor * talign
         if "emb" in st:
             emb = st["emb"]
-            e_txt = (edited.pooled_output.float().reshape(C, P, H)
-                     @ st["text_proj"])
+            e_txt = pooled.float().reshape(C, P, H) @ st["text_proj"]
             if hp.txt_img_align_loss_metric == "cos":
                 cos = (e_txt / e_txt.norm(dim=-1, keepdim=True)
                        * emb / emb.norm(dim=-1, keepdim=True)).sum(-1)
@@ -459,6 +585,11 @@ class ZOptimizer:
         z0 = gather([st["z0"] for st in states], dev, mesh)
         z0_norm = gather([st["z0_norm"] for st in states], dev, mesh)
 
+        graphs = None
+        if noise_loss and not graph_blockers(self.text_model, self.unet,
+                                             mesh):
+            graphs = step_graphs(self.text_model, self.unet,
+                                 self._graph_key(batch))
         pools = None
         if (self.eps_pool and total and not replay and noise_loss
                 and not hp.use_sampled_noise):
@@ -509,7 +640,9 @@ class ZOptimizer:
                                                 st["source_hidden"])
                 parts.append(self._loss(sh, st, delta[sh.rows].to(sh.device),
                                         noisy, t_s, noise_s, eps_dest,
-                                        eps_src))
+                                        eps_src, graphs))
+            count("stage1.eager_steps" if graphs is None or graphs.failed
+                  else "stage1.graph_steps")
             loss = gather(parts, dev)
             grad, = torch.autograd.grad(loss.sum(), delta)
             # this process's rows of the gradient (no other row depends on

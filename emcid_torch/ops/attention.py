@@ -28,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from emcid_torch.ops import _build
+from emcid_torch.ops import _build, graphs
 from emcid_torch.ops.flash_v2 import _dims, flash_attention_v2
 
 SHORT_KV_MAX = 256  # K4 takes fewer keys than this
@@ -111,14 +111,20 @@ def short_kv_fwd(q, k, v, scale: float) -> torch.Tensor:
     return o
 
 
+def _short_fwd(q, k, v, scale):
+    return short_kv_fwd(q, k, v, scale)
+
+
 class ShortKVAttention(torch.autograd.Function):
-    """K4 forward; chunked-recompute backward (``_flash_bwd`` in JAX)."""
+    """K4 forward; chunked-recompute backward (``_flash_bwd`` in JAX).  The
+    forward runs through ``graphs.eager``: a CUDA-graph capture leaves K4
+    out and takes the backward, which launches no kernel of the port."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
         ctx.save_for_backward(q, k, v)
         ctx.scale = scale
-        return short_kv_fwd(q, k, v, scale)
+        return graphs.eager(_short_fwd, q, k, v, scale)
 
     @staticmethod
     def backward(ctx, g):

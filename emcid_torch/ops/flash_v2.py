@@ -31,7 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from emcid_torch.ops import _build
+from emcid_torch.ops import _build, graphs
 
 
 # ---------------------------------------------------------------------------
@@ -186,13 +186,26 @@ def row_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     return (out.float() * dout.float()).sum(-1).transpose(1, 2).contiguous()
 
 
+def _fwd(q, k, v, scale):
+    return flash_fwd(q, k, v, scale)
+
+
+def _bwd(q, k, v, out, lse, g, scale):
+    g = g.contiguous()
+    delta = row_delta(out, g)
+    dq = flash_dq(q, k, v, g, lse, delta, scale)
+    dk, dv = flash_dkv(q, k, v, g, lse, delta, scale)
+    return dq, dk, dv
+
+
 class FlashAttentionV2(torch.autograd.Function):
     """K1 forward; K2 + K3 backward (mirrors ``flash_attention_v2``'s
-    custom_vjp: the forward saves the lse, no N^2 residuals)."""
+    custom_vjp: the forward saves the lse, no N^2 residuals).  Both bodies
+    run through ``graphs.eager``: a CUDA-graph capture leaves them out."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
-        out, lse = flash_fwd(q, k, v, scale)
+        out, lse = graphs.eager(_fwd, q, k, v, scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.scale = scale
         return out
@@ -200,10 +213,7 @@ class FlashAttentionV2(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
-        g = g.contiguous()
-        delta = row_delta(out, g)
-        dq = flash_dq(q, k, v, g, lse, delta, ctx.scale)
-        dk, dv = flash_dkv(q, k, v, g, lse, delta, ctx.scale)
+        dq, dk, dv = graphs.eager(_bwd, q, k, v, out, lse, g, ctx.scale)
         return dq, dk, dv, None
 
 

@@ -5,10 +5,11 @@ Stage-1 step, and ``StepReport``.
 Spans.  ``span(name)`` marks a stretch of host code where the work of one
 thing happens (``stage1.pool``), ``each(name, items)`` each iteration of
 a loop (``stage1.step``, ``sampler.step``), ``phase`` the ``edit.*``
-phases of ``apply_emcid``.  With neither ``recording()`` nor a
-``torch.profiler`` active ``span`` returns one shared no-op object.  Under
-``recording()`` a span keeps its host edges (``perf_counter_ns``) and, on a
-CUDA device, a pair of timing events at its edges, never synchronizing:
+phases of ``apply_emcid``; ``count`` adds to a named counter.  With
+neither ``recording()`` nor a ``torch.profiler`` active ``span`` returns
+one shared no-op object.  Under ``recording()`` a span keeps its host
+edges (``perf_counter_ns``) and, on a CUDA device, a pair of timing
+events at its edges, never synchronizing:
 ``Recorder.summary()`` reads the events after the caller's own
 synchronize.  Under a ``torch.profiler`` it also opens
 ``record_function(name)``, so that the span lands in the profiler's trace
@@ -36,7 +37,8 @@ T = TypeVar("T")
 
 
 class Recorder:
-    """The spans closed inside a ``recording()`` scope, in closing order."""
+    """The spans closed and the counts made inside a ``recording()``
+    scope."""
 
     def __init__(self, device=None):
         dev = torch.device(device) if device is not None else (
@@ -44,12 +46,14 @@ class Recorder:
             else torch.device("cpu"))
         self.device = dev if dev.type == "cuda" else None
         self.spans: List[Span] = []
+        self.counts: Dict[str, int] = {}
 
     def summary(self) -> Dict[str, Dict]:
         """Per span name: ``n``, ``host_s`` (each span's host-clock
         seconds, in closing order) and ``device_s`` (the same spans on the
         device clock, between their events; None without a CUDA device).
-        Call it after synchronizing the device."""
+        Per counter name (``count``): ``n``, its total, with ``host_s`` []
+        and ``device_s`` None.  Call it after synchronizing the device."""
         out: Dict[str, Dict] = {}
         for s in self.spans:
             d = out.setdefault(s.name, {
@@ -59,6 +63,8 @@ class Recorder:
             d["host_s"].append(s.seconds)
             if d["device_s"] is not None:
                 d["device_s"].append(s.ev0.elapsed_time(s.ev1) * 1e-3)
+        for name, n in self.counts.items():
+            out[name] = {"n": n, "host_s": [], "device_s": None}
         return out
 
 
@@ -80,6 +86,17 @@ def recording(device=None) -> Iterator[Recorder]:
         _RECORDER = outer
         if outer is not None:
             outer.spans.extend(rec.spans)
+            for name, n in rec.counts.items():
+                outer.counts[name] = outer.counts.get(name, 0) + n
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` of the recording in scope (none:
+    nothing).  Stage 1 (``engine/compute_z``) counts its steps that
+    replayed CUDA graphs, ``stage1.graph_steps``, and its eager ones,
+    ``stage1.eager_steps``; each capture is a ``stage1.capture`` span."""
+    if _RECORDER is not None:
+        _RECORDER.counts[name] = _RECORDER.counts.get(name, 0) + n
 
 
 class _Off:
