@@ -206,16 +206,12 @@ def _renderer(generate, gen_kwargs, val_prompts, sample_num: int, seed: int,
 def _main_sdxl(args, dev, instruction, hparams, timings: Dict[str, float],
                mesh=None):
     """The SDXL leg (instruction ``model_ckpt`` "sdxl-1.0", with
-    ``mom2_weight_2`` for encoder 2).  Returns (edited components,
-    (deltas_1, deltas_2)).  ``timings`` also collects "build_pipeline",
-    "covariances" and "generation" (training images; skipped when every
-    z is cached)."""
-    from emcid_torch.engine.sdxl import (
-        apply_emcid_to_sdxl_text_encoders,
-        load_z_pairs,
-        resolve_covariances_sdxl,
-        sdxl_training_latents,
-    )
+    ``mom2_weight_2`` for encoder 2) through ``apply_emcid_sdxl``.
+    Returns (edited components, (deltas_1, deltas_2)).  ``timings`` also
+    collects "build_pipeline" and the phases of ``apply_emcid_sdxl``:
+    "covariances", "generation" (training images; skipped when every z is
+    cached), "stage1", "stage2"."""
+    from emcid_torch.engine.sdxl import apply_emcid_sdxl
     from emcid_torch.models.sdxl import (
         build_random_sdxl_pipeline,
         build_tiny_sdxl_pipeline,
@@ -265,30 +261,18 @@ def _main_sdxl(args, dev, instruction, hparams, timings: Dict[str, float],
                        out_dir, timings)
     render(comps, "pre_edit")
 
-    t0 = time.time()
     stats = ((Path(args.stats_dir) / "sdxl" / "text1",
               Path(args.stats_dir) / "sdxl" / "text2")
              if args.stats_dir else (None, None))
-    covs_1, covs_2 = resolve_covariances_sdxl(comps, hparams, *stats)
-    sync()
-    timings["covariances"] = time.time() - t0
     cache_name = (f"{args.cache_dir}/{instruction['hparams']}/"
                   if args.cache_dir else None)
-    mean = logvar = None
-    if load_z_pairs(requests, cache_name, hparams)[2]:
-        t0 = time.time()
-        mean, logvar = sdxl_training_latents(
-            comps, requests, hparams, height=res, width=res,
-            num_inference_steps=steps, verbose=True)
-        sync()
-        timings["generation"] = time.time() - t0
-    d1, d2, edited = apply_emcid_to_sdxl_text_encoders(
-        comps, requests, hparams, mean, logvar, covs_1, covs_2,
+    d1, d2, edited = apply_emcid_sdxl(
+        comps, requests, hparams,
         mom2_weight=instruction.get("mom2_weight"),
         mom2_weight_2=instruction.get("mom2_weight_2"),
         edit_weight=instruction.get("edit_weight"), cache_name=cache_name,
-        mesh=mesh,
-        height=res, width=res, timings=timings)
+        stats_dir_1=stats[0], stats_dir_2=stats[1], height=res, width=res,
+        num_inference_steps=steps, mesh=mesh, timings=timings)
     render(edited, "post_edit")
     print(f"Done. Results in {out_dir}")
     return edited, (d1, d2)

@@ -24,6 +24,7 @@ from emcid_torch.engine.layer_stats import (
 from emcid_torch.engine.uce import edit_model_uce, edit_text_encoder_uce
 from emcid_torch.engine.debias import apply_emcid_to_text_encoder_debias
 from emcid_torch.engine.sdxl import (
+    apply_emcid_sdxl,
     apply_emcid_to_sdxl_text_encoders,
     compute_z_sdxl_text_encoders,
     execute_emcid_sd_xl_text_encoders,

@@ -36,6 +36,12 @@ not read.
 Stage 2: two independent one-pass inserts, encoder 1 with ``layers`` /
 ``mom2_update_weight`` and encoder 2 with ``layers_2`` /
 ``mom2_update_weight_2``, each through ``engine.emcid``.
+
+``apply_emcid_sdxl`` is the edit of a block, as ``editor.apply_emcid`` is
+for SD: covariances, training images, Stage 1 and Stage 2, each phase a
+span ``edit.<phase>`` with its seconds in ``timings``.  Each Stage-1 step
+is a ``stage1.step`` span, each concept's no-grad dest forward inside it a
+``stage1.dest`` span.
 """
 
 from __future__ import annotations
@@ -62,7 +68,7 @@ from emcid_torch.models.sdxl import (
 )
 from emcid_torch.parallel import gather, replicate
 from emcid_torch.parallel.distributed import is_writer
-from emcid_torch.profiling import each, phase
+from emcid_torch.profiling import each, phase, span
 
 
 class SDXLDraws(NamedTuple):
@@ -229,7 +235,7 @@ def compute_z_sdxl_text_encoders(
             if not hp.no_noise_loss:
                 eps_e = un(noisy, t, ctx, {"text_embeds": pool2,
                                            "time_ids": tids_d}).sample.float()
-                with torch.no_grad():
+                with torch.no_grad(), span("stage1.dest"):
                     eps_d = un(noisy, t, d_ctx[c].to(d),
                                {"text_embeds": d_pool2_in[c].to(d),
                                 "time_ids": tids_d}).sample.float()
@@ -469,3 +475,65 @@ def apply_emcid_to_sdxl_text_encoders(
             verbose=verbose)
         sync()
     return out
+
+
+def apply_emcid_sdxl(
+    components: SDXLComponents,
+    requests: Sequence[Dict],
+    hparams: EMCIDXLHyperParams,
+    mom2_weight=None,
+    mom2_weight_2=None,
+    edit_weight=None,
+    cache_name: Optional[str] = None,
+    stats_dir_1=None,
+    stats_dir_2=None,
+    captions: Optional[Sequence[str]] = None,
+    height: int = 1024,
+    width: int = 1024,
+    num_inference_steps: int = 50,
+    cfg_interval: Optional[float] = None,
+    mesh=None,
+    rng_seed: int = 0,
+    timings: Optional[Dict[str, float]] = None,
+    verbose: bool = True,
+) -> Tuple[Dict, Dict, SDXLComponents]:
+    """The SDXL edit of a block -> (deltas_1, deltas_2, edited
+    components): both encoders' covariances (``resolve_covariances_sdxl``
+    over ``stats_dir_1``/``stats_dir_2`` and ``captions``), SDXL training
+    images of the concepts the two-file z cache lacks
+    (``sdxl_training_latents``: ``num_inference_steps`` DDIM steps at
+    ``height`` x ``width``, ``cfg_interval``; placed at their requests'
+    rows of a posterior of every request), then
+    ``apply_emcid_to_sdxl_text_encoders`` (Stage 1 from ``rng_seed``,
+    Stage 2).  ``timings`` (when given) collects the seconds of each
+    phase under ``apply_emcid``'s keys: "covariances", "generation" (only
+    when a z is computed), "stage1", "stage2"; each phase is the span
+    ``edit.<phase>`` (``edit.train_images`` for "generation")."""
+    timings = {} if timings is None else timings
+    dev = components.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    with phase("edit.covariances", timings, "covariances"):
+        covs_1, covs_2 = resolve_covariances_sdxl(
+            components, hparams, stats_dir_1, stats_dir_2,
+            captions=captions, verbose=verbose)
+        sync()
+    missing = load_z_pairs(requests, cache_name, hparams)[2]
+    mean = logvar = None
+    if missing:
+        with phase("edit.train_images", timings, "generation"):
+            post = sdxl_training_latents(
+                components, [requests[i] for i in missing], hparams,
+                height=height, width=width,
+                num_inference_steps=num_inference_steps,
+                cfg_interval=cfg_interval, verbose=verbose)
+            mean, logvar = (
+                a.new_zeros((len(requests),) + a.shape[1:]).index_copy_(
+                    0, torch.as_tensor(missing, device=a.device), a)
+                for a in post)
+            sync()
+    return apply_emcid_to_sdxl_text_encoders(
+        components, requests, hparams, mean, logvar, covs_1, covs_2,
+        mom2_weight=mom2_weight, mom2_weight_2=mom2_weight_2,
+        edit_weight=edit_weight, cache_name=cache_name, height=height,
+        width=width, mesh=mesh, rng_seed=rng_seed, timings=timings,
+        verbose=verbose)

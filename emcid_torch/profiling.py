@@ -3,9 +3,11 @@ their ``recording``, analytic FLOP counts of the UNet forward and of one
 Stage-1 step, and ``StepReport``.
 
 Spans.  ``span(name)`` marks a stretch of host code where the work of one
-thing happens (``stage1.pool``), ``each(name, items)`` each iteration of
-a loop (``stage1.step``, ``sampler.step``), ``phase`` the ``edit.*``
-phases of ``apply_emcid``; ``count`` adds to a named counter.  With
+thing happens (``stage1.pool``; ``stage1.dest``, the no-grad dest forward
+of one concept inside an SDXL Stage-1 step), ``each(name, items)`` each
+iteration of a loop (``stage1.step``, ``sampler.step``), ``phase`` the
+``edit.*`` phases of ``apply_emcid`` and ``apply_emcid_sdxl``; ``count``
+adds to a named counter.  With
 neither ``recording()`` nor a ``torch.profiler`` active ``span`` returns
 one shared no-op object.  Under ``recording()`` a span keeps its host
 edges (``perf_counter_ns``) and, on a CUDA device, a pair of timing
