@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only   # phases 1-2, no device line
-    python3 chip_smoke.py --stage1-graphs  # phases 1 and 3b
+    python3 chip_smoke.py --stage1-graphs  # phases 1, 3b and 8b
 
 (``--dcn-worker SPEC`` is one rank of phase 7f, which the script starts
 itself under ``python -m torch.distributed.run``.)
@@ -183,7 +183,13 @@ Phases, each printing one JSON line:
    ``fma``); one Stage-1 step under ``torch.profiler`` (busy, idle share,
    the hand-written kernels' share, the top device ops); and the same CLI
    call again, which must read the two-file z cache, generate no training
-   image and launch no K2 or K3.
+   image and launch no K2 or K3;
+8b. SDXL's Stage 1 replayed from CUDA graphs against the same block eager
+   on that pipeline (``sdxl_stage1_graphs_path``) at ``sdxl-edit-b2``'s
+   shape (2 concepts x 3 prompts, 128x128 latents, 30 steps): eager, then
+   graphs twice; z both ways, the K1-K4 launches per route, the Stage-1
+   counters, the capture seconds, a concept-step's device and host
+   milliseconds, the peak and reserved memory.
 
 Then the kernel table line (launches from the CLI path, from the
 evaluation path's mend run, from the SDXL path, from the UNet edit
@@ -991,16 +997,17 @@ def main_path(torch, stats_dir, failures):
 
 @contextlib.contextmanager
 def eager_stage1():
-    """Every Stage-1 step inside the scope runs eagerly, as where a graph
-    is not safe (``compute_z.graph_blockers``)."""
-    from emcid_torch.engine import compute_z
+    """Every Stage-1 step inside the scope, SD's and SDXL's, runs eagerly,
+    as where a graph is not safe (``compute_z.graph_blockers``)."""
+    from emcid_torch.engine import compute_z, sdxl
 
-    orig = compute_z.graph_blockers
-    compute_z.graph_blockers = lambda *a, **k: ["eager"]
+    orig = compute_z.graph_blockers, sdxl.graph_blockers
+    compute_z.graph_blockers = sdxl.graph_blockers = (
+        lambda *a, **k: ["eager"])
     try:
         yield
     finally:
-        compute_z.graph_blockers = orig
+        compute_z.graph_blockers, sdxl.graph_blockers = orig
 
 
 def stage1_block(torch, comps, C, hp, pool, seed, eager):
@@ -4428,6 +4435,121 @@ def sdxl_stage2_f64(torch, ref, hp, zs, stats):
     return solve_rel, chained_rel
 
 
+def sdxl_stage1_block(torch, ref, hp, mean, logvar, seed, eager):
+    """One SDXL Stage-1 block of ``SDXL_REQUESTS`` at ``SDXL_RES`` on the
+    full-width pipeline, under a recording: its z (both encoders, one row
+    a concept), seconds, peak and reserved memory, the K1-K4 launches per
+    route, a step's and a concept-step's device and host milliseconds, the
+    Stage-1 counters and the capture seconds."""
+    from emcid_torch import profiling
+    from emcid_torch.engine import sdxl
+    from emcid_torch.ops import _build
+
+    C = len(SDXL_REQUESTS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    with contextlib.ExitStack() as stack:
+        if eager:
+            stack.enter_context(eager_stage1())
+        rec = stack.enter_context(profiling.recording("cuda"))
+        t0 = time.time()
+        zs = sdxl.compute_z_sdxl_text_encoders(
+            ref, SDXL_REQUESTS, hp, mean, logvar,
+            gen=torch.Generator(device="cuda").manual_seed(seed),
+            height=SDXL_RES, width=SDXL_RES, verbose=False)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+    summ = rec.summary()
+    step, dest = summ.get("stage1.step", {}), summ.get("stage1.dest", {})
+    ms = lambda xs: 1e3 * statistics.median(xs)  # noqa: E731
+    return dict(
+        z=torch.cat([torch.as_tensor(z).reshape(C, -1) for z in zs], -1),
+        seconds=seconds,
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        reserved_gib=torch.cuda.memory_reserved() / 2 ** 30,
+        routes={k: dict(_build.ROUTES[k]) for k in ATTENTION},
+        steps=step.get("n", 0),
+        step_ms=ms(step["device_s"]), step_host_ms=ms(step["host_s"]),
+        concept_step_ms=ms(step["device_s"]) / C,
+        concept_step_host_ms=ms(step["host_s"]) / C,
+        dest_ms=ms(dest["device_s"]),
+        counts={k: summ[k]["n"] for k in (
+            "stage1.graph_steps", "stage1.eager_steps", "stage1.capture")
+            if k in summ},
+        capture_s=sum(summ.get("stage1.capture", {}).get("host_s", [])))
+
+
+def sdxl_stage1_graphs_path(torch, ref, failures):
+    """SDXL's Stage 1 with each concept's work replayed from CUDA graphs
+    against the same block eager, at ``sdxl-edit-b2``'s shape: 2 concepts
+    x 3 prompts at 1024 px (128x128 latents drawn from a seed), 30 Adam
+    steps; eager, then graphs twice (the first captures, the second only
+    replays).  The row: z against the eager block (bitwise, else within
+    ``STAGE1_GRAPHS_TOL`` of the step |z - z0|), the K1-K4 launches per
+    route (equal both ways, no ``fma``), the counters, the capture
+    seconds, the step's and a concept-step's device and host milliseconds,
+    the dest forward's, the peak and reserved memory.  The captures go
+    after the row: the later phases make their own."""
+    from emcid_torch.engine import sdxl
+
+    hp = sdxl_hparams(30)
+    g = torch.Generator(device="cuda").manual_seed(21)
+    mean = torch.randn(len(SDXL_REQUESTS), 1, 3, SDXL_RES // 8,
+                       SDXL_RES // 8, 4, generator=g, device="cuda")
+    logvar = torch.full_like(mean, -4.0)
+    z0 = torch.cat([torch.as_tensor(z).reshape(len(SDXL_REQUESTS), -1)
+                    for z in sdxl.compute_z_sdxl_text_encoders(
+                        ref, SDXL_REQUESTS,
+                        dataclasses.replace(hp, v_num_grad_steps=0), mean,
+                        logvar, height=SDXL_RES, width=SDXL_RES,
+                        verbose=False)], -1)
+    order = "EGG"
+    runs = [sdxl_stage1_block(torch, ref, hp, mean, logvar, 22, k == "E")
+            for k in order]
+    eager, graphs, last = runs
+
+    def gap(r):
+        return float(((r["z"] - eager["z"]).norm(dim=-1) / (
+            eager["z"] - z0).norm(dim=-1).clamp_min(1e-30)).max())
+
+    steps = eager["steps"]
+    row = dict(
+        phase="stage1_graphs", shape="sdxl_b2", concepts=len(SDXL_REQUESTS),
+        prompts=3, resolution=SDXL_RES, steps=steps, order=order,
+        z_bitwise=bool(torch.equal(last["z"], eager["z"])),
+        z_bitwise_first_capture=bool(torch.equal(graphs["z"], eager["z"])),
+        z_gap=gap(last), z_gap_first_capture=gap(graphs),
+        routes_eager=eager["routes"], routes_graphs=last["routes"],
+        counts=[r["counts"] for r in runs],
+        capture_s=[r["capture_s"] for r in runs],
+        step_ms={k: r["step_ms"] for k, r in zip("E12", runs)},
+        step_host_ms={k: r["step_host_ms"] for k, r in zip("E12", runs)},
+        concept_step_ms={k: r["concept_step_ms"]
+                         for k, r in zip("E12", runs)},
+        concept_step_host_ms={k: r["concept_step_host_ms"]
+                              for k, r in zip("E12", runs)},
+        dest_ms={k: r["dest_ms"] for k, r in zip("E12", runs)},
+        block_s=[r["seconds"] for r in runs],
+        peak_gib=[r["peak_gib"] for r in runs],
+        reserved_gib=[r["reserved_gib"] for r in runs])
+    row["ok"] = (
+        (row["z_bitwise"] or row["z_gap"] <= STAGE1_GRAPHS_TOL)
+        and last["routes"] == eager["routes"]
+        and all(r[k]["fma"] == 0 for r in (eager["routes"], last["routes"])
+                for k in ATTENTION)
+        and eager["counts"] == {"stage1.eager_steps": steps}
+        and graphs["counts"] == {"stage1.graph_steps": steps,
+                                 "stage1.capture": 1}
+        and last["counts"] == {"stage1.graph_steps": steps})
+    emit(row)
+    if not row["ok"]:
+        failures.append(f"stage1 graphs sdxl_b2: {row}")
+    sdxl._SDXL_GRAPHS.pop(ref.unet, None)
+    torch.cuda.empty_cache()
+    return row
+
+
 def profile_stage1_step(torch, ref, hp):
     """One joint Stage-1 step (2 concepts x 3 prompts at 1024 px, random
     posterior latents, the text encoders' forwards around it included):
@@ -4715,6 +4837,11 @@ def main(argv=None) -> int:
                                       seed=0, device="cuda")
         with environ(**dict.fromkeys(KNOBS)):
             stage1_graphs_path(torch, comps, failures)
+            del comps
+            torch.cuda.empty_cache()
+            ref, build_s = build_sdxl(torch)
+            emit(dict(phase="sdxl_build", seconds=build_s))
+            sdxl_stage1_graphs_path(torch, ref, failures)
         for f in failures:
             print(f"FAILED: {f}", file=sys.stderr)
         return 1 if failures else 0
@@ -4781,6 +4908,8 @@ def main(argv=None) -> int:
                   for p in m.parameters()),
               resident_gb=torch.cuda.memory_allocated() / 2 ** 30))
     sdxl_model_checks(torch, ref, failures)
+    with environ(**dict.fromkeys(KNOBS)):
+        sdxl_stage1_graphs_path(torch, ref, failures)
     with tempfile.TemporaryDirectory() as tmp:
         sdxl = sdxl_path(torch, Path(tmp), ref, build_s, failures)
     del ref

@@ -2,7 +2,8 @@
 
 ``capture(fn, inputs)`` captures ``fn``'s forward over ``inputs`` and its
 backward into the inputs that require grad, and returns a ``Captured``: a
-differentiable call that replays both.  The capture is cut at every call
+differentiable call that replays both.  Where no input requires grad, it
+captures the forward alone, under no-grad.  The capture is cut at every call
 routed through ``eager``, which the K1-K4 autograd functions do with their
 forward and backward bodies (``ops/flash_v2.FlashAttentionV2``,
 ``ops/attention.ShortKVAttention``'s forward).  Such a call ends the graph
@@ -174,10 +175,11 @@ def _grad_pass(outs, wrt, grad_outputs):
 def capture(fn: Callable, inputs: Sequence[torch.Tensor],
             graph_type=None) -> Captured:
     """Capture ``fn(*inputs)`` (a tensor or a tuple of tensors) and its
-    backward into the inputs that require grad.  ``fn`` and its backward
-    run twice on static copies of ``inputs``, on a side stream: once
-    eagerly (library handles and workspaces are made for that stream, in
-    this thread and in autograd's), then under capture.
+    backward into the inputs that require grad; where none does, the
+    forward alone, under no-grad (its replay has no backward).  ``fn`` and
+    its backward run twice on static copies of ``inputs``, on a side
+    stream: once eagerly (library handles and workspaces are made for that
+    stream, in this thread and in autograd's), then under capture.
     Only the graphs, the eager calls and the static buffers are kept, not
     ``fn``: a ``Captured`` holds no reference to the modules it runs.
     ``graph_type`` stands in for ``torch.cuda.CUDAGraph`` (tests)."""
@@ -190,9 +192,13 @@ def capture(fn: Callable, inputs: Sequence[torch.Tensor],
     side = torch.cuda.Stream(static[0].device) if cuda else None
     if cuda:
         side.wait_stream(torch.cuda.current_stream(static[0].device))
-    with torch.cuda.stream(side):  # no-op without a stream
+    grad_on = torch.is_grad_enabled() and bool(wrt)
+    grads = ()
+    # the stream: a no-op without one
+    with torch.cuda.stream(side), torch.set_grad_enabled(grad_on):
         outs = _tuple(fn(*static))
-        _grad_pass(outs, wrt, [torch.zeros_like(o) for o in outs])
+        if wrt:
+            _grad_pass(outs, wrt, [torch.zeros_like(o) for o in outs])
         del outs
         if cuda:
             side.synchronize()
@@ -203,10 +209,12 @@ def capture(fn: Callable, inputs: Sequence[torch.Tensor],
             sess.begin()
             outs = _tuple(fn(*static))
             fwd = sess.cut()
-            grad_outputs = [torch.zeros_like(o) for o in outs]
-            sess.begin()
-            grads = _grad_pass(outs, wrt, grad_outputs)
-            bwd = sess.cut()
+            grad_outputs, bwd = [], []
+            if wrt:
+                grad_outputs = [torch.zeros_like(o) for o in outs]
+                sess.begin()
+                grads = _grad_pass(outs, wrt, grad_outputs)
+                bwd = sess.cut()
         except BaseException:
             sess.abort()
             raise
