@@ -999,15 +999,14 @@ def main_path(torch, stats_dir, failures):
 def eager_stage1():
     """Every Stage-1 step inside the scope, SD's and SDXL's, runs eagerly,
     as where a graph is not safe (``compute_z.graph_blockers``)."""
-    from emcid_torch.engine import compute_z, sdxl
+    from emcid_torch.engine import compute_z
 
-    orig = compute_z.graph_blockers, sdxl.graph_blockers
-    compute_z.graph_blockers = sdxl.graph_blockers = (
-        lambda *a, **k: ["eager"])
+    orig = compute_z.graph_blockers
+    compute_z.graph_blockers = lambda *a, **k: ["eager"]
     try:
         yield
     finally:
-        compute_z.graph_blockers, sdxl.graph_blockers = orig
+        compute_z.graph_blockers = orig
 
 
 def stage1_block(torch, comps, C, hp, pool, seed, eager):
@@ -1047,9 +1046,8 @@ def stage1_block(torch, comps, C, hp, pool, seed, eager):
         seconds = time.time() - t0
     summ = rec.summary()
     step = summ.get("stage1.step", {})
-    sg = [v for per_text in compute_z._STEP_GRAPHS.values()
-          for per_key in per_text.values() for k, v in per_key.items()
-          if k[1] == 3 * C and v.eps is not None]
+    sg = None if eager else compute_z.stage1_graphs(
+        (optz.text_model, optz.unet), optz.graph_shapes(batch))
     return dict(
         z=zs.reshape(C, -1), z0=z0.reshape(C, -1), seconds=seconds,
         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -1062,9 +1060,9 @@ def stage1_block(torch, comps, C, hp, pool, seed, eager):
             "stage1.graph_steps", "stage1.eager_steps", "stage1.capture")
             if k in summ},
         capture_s=sum(summ.get("stage1.capture", {}).get("host_s", [])),
-        replay=None if eager or not sg else {
-            "graph_launches": sg[0].text.graphs + sg[0].eps.graphs,
-            "eager_calls": sg[0].text.eager_calls + sg[0].eps.eager_calls})
+        replay=None if sg is None or not sg.captured else {
+            "graph_launches": sum(c.graphs for c in sg.captured.values()),
+            "eager_calls": sum(c.eager_calls for c in sg.captured.values())})
 
 
 # |z_graphs - z_eager| over |z_eager - z0| per concept where the bits
@@ -4491,7 +4489,7 @@ def sdxl_stage1_graphs_path(torch, ref, failures):
     seconds, the step's and a concept-step's device and host milliseconds,
     the dest forward's, the peak and reserved memory.  The captures go
     after the row: the later phases make their own."""
-    from emcid_torch.engine import sdxl
+    from emcid_torch.engine import compute_z, sdxl
 
     hp = sdxl_hparams(30)
     g = torch.Generator(device="cuda").manual_seed(21)
@@ -4545,7 +4543,8 @@ def sdxl_stage1_graphs_path(torch, ref, failures):
     emit(row)
     if not row["ok"]:
         failures.append(f"stage1 graphs sdxl_b2: {row}")
-    sdxl._SDXL_GRAPHS.pop(ref.unet, None)
+    compute_z.held_graphs(
+        (ref.text_encoder, ref.text_encoder_2, ref.unet)).clear()
     torch.cuda.empty_cache()
     return row
 

@@ -35,23 +35,27 @@ makes the optimization comparable with the JAX package's given the same
 training images.  With an override the eps_dest pool and the cosine
 schedule do not engage (as in JAX).
 
-CUDA graphs.  On the card a step's gradient pass replays captured graphs
-(``ops/graphs``): the text model's forward with the injected delta and
-its backward into the delta, and the UNet's eps with its backward into
-the context.  The K1-K4 attention calls inside them stay eager, between
-the replays, through their wrappers (every launch is still one call that
-``_build.ROUTES`` counts and a profiler wrapper sees); everything else of
-those two passes replays, one graph per stretch between two such calls.
-The draws, the pool index, the loss terms, Adam, the ball projection and
-the loss record stay eager as they were.  The graphs engage only where a
-step can be seen to be safe to replay (``graph_blockers``): CUDA models,
-no mesh, grad on, no forward or backward hooks on either model, the fused
-norm kernels off, and a noise loss.  Everywhere else the step is eager as
-before.  One capture serves every later block of the same models at the
-same shapes (``StepGraphs``, keyed weakly on the modules, not on the
-hparams, so a warm-up block captures what later blocks replay; the
-captures go with their modules).  Under a ``profiling.recording`` the
-steps count as ``stage1.graph_steps`` or ``stage1.eager_steps``, and
+CUDA graphs, here and in SDXL's Stage 1 (``engine/sdxl``).  On the card
+a step's gradient pass replays captured graphs (``ops/graphs``); here the
+text model's forward with the injected delta and its backward into the
+delta, and the UNet's eps with its backward into the context.  The K1-K4
+attention calls inside them stay eager, between the replays, through
+their wrappers (every launch is still one call that ``_build.ROUTES``
+counts and a profiler wrapper sees); everything else of the captured
+calls replays, one graph per stretch between two such calls.  The draws,
+the pool index, the loss terms, Adam, the ball projection and the loss
+record stay eager.  The graphs engage only where a step can be seen to be
+safe to replay (``graph_blockers``): CUDA models, no mesh, grad on, no
+forward or backward hooks on any of the models, the fused norm kernels
+off, and a noise loss.  Everywhere else the step is eager.  Each Stage 1
+names its captures in a function of its own; ``StepGraphs`` holds them
+for one shape, makes them at the first step that wants them and runs the
+step eagerly for good where that fails.  One capture serves every later
+block of the same models at the same shapes (``stage1_graphs``: keyed
+weakly on the modules and by ``graph_key``, not on the hparams, so a
+warm-up block captures what later blocks replay; the captures go with
+their modules).  Under a ``profiling.recording`` the steps count as
+``stage1.graph_steps`` or ``stage1.eager_steps`` (``count_step``), and
 each capture is a ``stage1.capture`` span.
 """
 
@@ -61,7 +65,8 @@ import os
 import warnings
 import weakref
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -228,22 +233,22 @@ def _hooked(module: torch.nn.Module) -> bool:
                or m._backward_pre_hooks for m in module.modules())
 
 
-def graph_blockers(text_model, unet, mesh=None) -> List[str]:
+def graph_blockers(*models, mesh=None) -> List[str]:
     """Why a Stage-1 step of these models cannot replay CUDA graphs here:
-    ``"device"`` (not both on one CUDA device), ``"mesh"``, ``"no grad"``,
-    ``"hooks"`` (forward or backward hooks on either model, as
-    ``unet_taps`` and ``unet_inject`` register), ``"fused norms"`` (the
-    K5/K6 knobs: those kernels count their launches in Python, which a
-    replay would skip).  Empty where it can."""
+    ``"device"`` (not all on one CUDA device), ``"mesh"``, ``"no grad"``,
+    ``"hooks"`` (forward or backward hooks on any model, as ``unet_taps``
+    and ``unet_inject`` register), ``"fused norms"`` (the K5/K6 knobs:
+    those kernels count their launches in Python, which a replay would
+    skip).  Empty where it can."""
     why = []
-    dev = next(unet.parameters()).device
-    if dev.type != "cuda" or next(text_model.parameters()).device != dev:
+    devs = {next(m.parameters()).device for m in models}
+    if len(devs) != 1 or next(iter(devs)).type != "cuda":
         why.append("device")
     if mesh is not None:
         why.append("mesh")
     if not torch.is_grad_enabled():
         why.append("no grad")
-    if _hooked(text_model) or _hooked(unet):
+    if any(_hooked(m) for m in models):
         why.append("hooks")
     if _fused_gn() != "0" or _fused_ln():
         why.append("fused norms")
@@ -251,53 +256,78 @@ def graph_blockers(text_model, unet, mesh=None) -> List[str]:
 
 
 class StepGraphs:
-    """A Stage-1 step's gradient pass at one shape, captured at the first
-    step that wants it: ``text(ids, inj)`` -> (hidden, pooled) with the
-    delta injected at the optimizer's layer, and ``eps(noisy, t, ctx)`` ->
-    (eps,), each a ``cuda_graphs.Captured``.  A failed capture leaves
-    ``failed`` set, and the steps of this shape run eagerly."""
+    """A Stage-1 step's captured calls at one shape (``captured``: a
+    ``cuda_graphs.Captured`` by name), made at the first step that wants
+    them.  A failed capture leaves ``failed`` set, and the steps of this
+    shape run eagerly."""
 
-    def __init__(self):
-        self.text = self.eps = None
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.captured: Dict[str, cuda_graphs.Captured] = {}
         self.failed = False
 
-    def ready(self, optz: "ZOptimizer", sh: "_Shard", ids, inj, noisy,
-              t) -> bool:
-        """Capture on the first call; whether the step replays."""
-        if self.text is None and not self.failed:
-            self._capture(optz, sh, ids, inj, noisy, t)
-        return not self.failed
-
-    def _capture(self, optz, sh, ids, inj, noisy, t) -> None:
-        text, unet, layer = sh.text, sh.unet, optz.layer
-        with span("stage1.capture"):
-            try:
-                self.text = cuda_graphs.capture(
-                    lambda i, d: tuple(text(i, inject_layer=layer,
-                                            inject_delta=d)[:2]), (ids, inj))
-                ctx = self.text(ids, inj)[0].detach().requires_grad_()
-                self.eps = cuda_graphs.capture(
-                    lambda x, s, c: ZOptimizer._eps(unet, x, s, c),
-                    (noisy, t, ctx))
-            except RuntimeError as e:
-                warnings.warn("Stage 1 runs eagerly at this shape: its "
-                              f"CUDA-graph capture failed ({e})")
-                self.text = self.eps = None
-                self.failed = True
-            torch.cuda.synchronize(sh.device)
-            # the warm-up's blocks, cached for the capture's side stream
-            torch.cuda.empty_cache()
+    def ready(self, capture: Callable[[], Dict[str, cuda_graphs.Captured]],
+              label: str) -> Optional[Dict[str, cuda_graphs.Captured]]:
+        """The captures, made by ``capture()`` on the first call; None
+        where they failed (``label`` names the Stage 1 in the warning), and
+        the step runs eagerly."""
+        if not self.captured and not self.failed:
+            with span("stage1.capture"):
+                try:
+                    self.captured = capture()
+                except RuntimeError as e:
+                    warnings.warn(f"{label} runs eagerly at this shape: its "
+                                  f"CUDA-graph capture failed ({e})")
+                    self.failed = True
+                torch.cuda.synchronize(self.device)
+                # the warm-up's blocks, cached for the capture's side stream
+                torch.cuda.empty_cache()
+        return None if self.failed else self.captured
 
 
-# captured steps by UNet, then text model, then shape; weakly keyed, so
-# that a module's captures go with it
-_STEP_GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+def count_step(graphs: Optional[StepGraphs]) -> None:
+    """Count a Stage-1 step as replayed from ``graphs`` or as eager (no
+    graphs, or a failed capture)."""
+    count("stage1.eager_steps" if graphs is None or graphs.failed
+          else "stage1.graph_steps")
 
 
-def step_graphs(text_model, unet, key: Tuple) -> StepGraphs:
-    """The ``StepGraphs`` of these modules at ``key``, new or cached."""
-    by_text = _STEP_GRAPHS.setdefault(unet, weakref.WeakKeyDictionary())
-    return by_text.setdefault(text_model, {}).setdefault(key, StepGraphs())
+# captured steps: per number of modules, one weak level per module, then
+# the key.  SD's (text, unet) and SDXL's (text1, text2, unet) are apart
+# even where they share modules (``SDXLComponents.sd_view``); weakly
+# keyed, so that a module's captures go with it
+_STEP_GRAPHS: Dict[int, "weakref.WeakKeyDictionary"] = {}
+
+
+def held_graphs(models: Sequence[torch.nn.Module]) -> Dict[Tuple,
+                                                          StepGraphs]:
+    """The ``StepGraphs`` cached for these modules, by key: the cache's own
+    dict, so clearing it drops their captures."""
+    node = _STEP_GRAPHS.setdefault(len(models), weakref.WeakKeyDictionary())
+    for m in models[:-1]:
+        node = node.setdefault(m, weakref.WeakKeyDictionary())
+    return node.setdefault(models[-1], {})
+
+
+def graph_key(models: Sequence[torch.nn.Module], shapes: Tuple) -> Tuple:
+    """What a capture over these modules is specific to: the caller's
+    ``shapes``, each module's dtype, their device and the attention
+    routing; not the hparams, so that a warm-up block captures what later
+    blocks replay."""
+    params = [next(m.parameters()) for m in models]
+    return (tuple(shapes), *(p.dtype for p in params), params[0].device,
+            _flash_min_seq(), os.environ.get("EMCID_TPU_NO_FLASH"))
+
+
+def stage1_graphs(models: Sequence[torch.nn.Module], shapes: Tuple,
+                  mesh=None) -> Optional[StepGraphs]:
+    """The ``StepGraphs`` of these modules at ``shapes``, new or cached;
+    None where ``graph_blockers`` finds a reason against them."""
+    if graph_blockers(*models, mesh=mesh):
+        return None
+    return held_graphs(models).setdefault(
+        graph_key(models, shapes),
+        StepGraphs(next(models[0].parameters()).device))
 
 
 class _Shard(NamedTuple):
@@ -452,15 +482,28 @@ class ZOptimizer:
             pools.append({k: torch.stack(v) for k, v in pool.items()})
         return pools
 
-    def _graph_key(self, batch: ConceptBatch) -> Tuple:
-        """What a captured step is specific to, besides its modules."""
+    def graph_shapes(self, batch: ConceptBatch) -> Tuple:
+        """What a captured step is specific to, besides its modules
+        (``graph_key``)."""
         C, P, S = batch.source_ids.shape
         h, w = batch.latents_mean.shape[3:5]
         return (self.layer, C * P, S, self.text_model.config.hidden_size,
-                h, w, next(self.text_model.parameters()).dtype,
-                next(self.unet.parameters()).dtype,
-                batch.source_ids.device, _flash_min_seq(),
-                os.environ.get("EMCID_TPU_NO_FLASH"))
+                h, w)
+
+    def _capture(self, sh: _Shard, ids, inj, noisy, t
+                 ) -> Dict[str, cuda_graphs.Captured]:
+        """The step's gradient pass at these inputs, captured:
+        ``text(ids, inj)`` -> (hidden, pooled) with the delta injected at
+        the optimizer's layer, backward into ``inj``; ``eps(noisy, t,
+        ctx)`` -> (eps,), backward into ``ctx``."""
+        text, unet, layer = sh.text, sh.unet, self.layer
+        cap = {"text": cuda_graphs.capture(
+            lambda i, d: tuple(text(i, inject_layer=layer,
+                                    inject_delta=d)[:2]), (ids, inj))}
+        ctx = cap["text"](ids, inj)[0].detach().requires_grad_()
+        cap["eps"] = cuda_graphs.capture(
+            lambda x, s, c: ZOptimizer._eps(unet, x, s, c), (noisy, t, ctx))
+        return cap
 
     def _loss(self, sh: _Shard, st, delta, noisy, t, noise, eps_dest,
               eps_src, graphs: Optional[StepGraphs] = None) -> torch.Tensor:
@@ -473,19 +516,21 @@ class ZOptimizer:
         H = delta.shape[-1]
         inj = torch.einsum("ctps,cth->cpsh", b.inject_mask, delta)
         inj = inj.reshape(C * P, S, H)
-        if graphs is not None and graphs.ready(self, sh, st["src_ids"], inj,
-                                               noisy, t):
-            hidden, pooled = graphs.text(st["src_ids"], inj)
+        ids = st["src_ids"]
+        cap = None if graphs is None else graphs.ready(
+            lambda: self._capture(sh, ids, inj, noisy, t), "Stage 1")
+        if cap is not None:
+            hidden, pooled = cap["text"](ids, inj)
         else:
-            graphs = None
-            edited = sh.text(st["src_ids"], inject_layer=self.layer,
-                             inject_delta=inj)
+            edited = sh.text(ids, inject_layer=self.layer, inject_delta=inj)
             hidden, pooled = edited.last_hidden_state, edited.pooled_output
         if hp.no_noise_loss:
             loss = torch.zeros(C, device=sh.device)
         else:
-            eps_edit = (self._eps(sh.unet, noisy, t, hidden) if graphs is None
-                        else graphs.eps(noisy, t, hidden)[0])
+            # eagerly contiguous, as a captured graph holds it: the UNet's
+            # first convolution takes another path on channel-last strides
+            eps_edit = (self._eps(sh.unet, noisy.contiguous(), t, hidden)
+                        if cap is None else cap["eps"](noisy, t, hidden)[0])
             if hp.objective == "esd":
                 mu = (float(hp.esd_mu) if hp.esd_mu not in (None, "None")
                       else 1.0)
@@ -585,11 +630,9 @@ class ZOptimizer:
         z0 = gather([st["z0"] for st in states], dev, mesh)
         z0_norm = gather([st["z0_norm"] for st in states], dev, mesh)
 
-        graphs = None
-        if noise_loss and not graph_blockers(self.text_model, self.unet,
-                                             mesh):
-            graphs = step_graphs(self.text_model, self.unet,
-                                 self._graph_key(batch))
+        graphs = (stage1_graphs((self.text_model, self.unet),
+                                self.graph_shapes(batch), mesh)
+                  if noise_loss else None)
         pools = None
         if (self.eps_pool and total and not replay and noise_loss
                 and not hp.use_sampled_noise):
@@ -641,8 +684,7 @@ class ZOptimizer:
                 parts.append(self._loss(sh, st, delta[sh.rows].to(sh.device),
                                         noisy, t_s, noise_s, eps_dest,
                                         eps_src, graphs))
-            count("stage1.eager_steps" if graphs is None or graphs.failed
-                  else "stage1.graph_steps")
+            count_step(graphs)
             loss = gather(parts, dev)
             grad, = torch.autograd.grad(loss.sum(), delta)
             # this process's rows of the gradient (no other row depends on

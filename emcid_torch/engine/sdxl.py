@@ -43,27 +43,15 @@ span ``edit.<phase>`` with its seconds in ``timings``.  Each Stage-1 step
 is a ``stage1.step`` span, each concept's no-grad dest forward inside it a
 ``stage1.dest`` span.
 
-CUDA graphs.  On the card each concept's Stage-1 work replays captured
-graphs (``ops/graphs``, ``SDXLStepGraphs``): both encoders' forward with
-their injects and its backward into them, the edited UNet's eps with its
-backward into the context and the pooled embeds, and the dest forward,
-captured without a backward.  K1-K4 stay eager between the replays,
-through their wrappers, as on the SD path (``compute_z``).  The draws, the
-noising, the inject einsums, the loss terms, Adam and the ball projection
-stay eager.  The graphs engage where ``compute_z.graph_blockers`` finds
-nothing against them in any of the three models and there is a noise loss;
-elsewhere the steps are eager.  One capture serves every concept and later
-block of the same models at the same shapes (keyed weakly on the modules,
-not on the hparams).  Under a ``profiling.recording`` the steps count as
-``stage1.graph_steps`` or ``stage1.eager_steps``, and each capture is a
-``stage1.capture`` span.
+CUDA graphs (``compute_z`` says when and how they engage).  On the card
+each concept's Stage-1 work replays three captures
+(``_capture_concept``): both encoders' forward with their injects and its
+backward into them, the edited UNet's eps with its backward into the
+context and the pooled embeds, and the dest forward, without a backward.
 """
 
 from __future__ import annotations
 
-import os
-import warnings
-import weakref
 from pathlib import Path
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -73,8 +61,9 @@ import torch
 from emcid_torch.engine.compute_z import (
     adam_step_,
     clamp_to_ball_,
-    graph_blockers,
+    count_step,
     prepare_concept_batch,
+    stage1_graphs,
 )
 from emcid_torch.engine.emcid import execute_emcid_text_encoder, z_cache_path
 from emcid_torch.hparams import EMCIDHyperParams, EMCIDXLHyperParams
@@ -86,10 +75,9 @@ from emcid_torch.models.sdxl import (
     sdxl_time_ids,
 )
 from emcid_torch.ops import graphs as cuda_graphs
-from emcid_torch.ops.attention import _flash_min_seq
 from emcid_torch.parallel import gather, replicate
 from emcid_torch.parallel.distributed import is_writer
-from emcid_torch.profiling import count, each, phase, span
+from emcid_torch.profiling import each, phase, span
 
 
 class SDXLDraws(NamedTuple):
@@ -130,82 +118,21 @@ def _unet_eps(unet, noisy, t, ctx, pooled, time_ids) -> torch.Tensor:
                                 "time_ids": time_ids}).sample.float()
 
 
-class SDXLStepGraphs:
-    """A concept's Stage-1 work at one shape, captured at the first step
-    that wants it, each a ``cuda_graphs.Captured``: ``cond(ids, ids_2,
-    inj1, inj2)`` -> (ctx, pool1, pool2), both encoders with their
-    injects, backward into the injects; ``eps(noisy, t, ctx, pool2,
-    time_ids)`` -> (eps,), backward into ctx and pool2; ``dest(noisy, t,
-    ctx, pool2, time_ids)`` -> (eps,) at the dest conditioning, forward
-    only.  A failed capture leaves ``failed`` set, and the steps of this
-    shape run eagerly."""
-
-    def __init__(self):
-        self.cond = self.eps = self.dest = None
-        self.failed = False
-
-    def ready(self, cond, unet, cond_in, unet_in, dest_in) -> bool:
-        """Capture on the first call; whether the concept replays.
-        ``cond``: the conditioning with the injects, a function of
-        ``cond_in`` (ids, ids_2, inj1, inj2); ``unet_in``: (noisy, t,
-        time_ids); ``dest_in``: the dest's (ctx, pool2)."""
-        if self.cond is None and not self.failed:
-            self._capture(cond, unet, cond_in, unet_in, dest_in)
-        return not self.failed
-
-    def _capture(self, cond, unet, cond_in, unet_in, dest_in) -> None:
-        noisy, t, time_ids = unet_in
-        eps = lambda *a: _unet_eps(unet, *a)  # noqa: E731
-        with span("stage1.capture"):
-            try:
-                self.cond = cuda_graphs.capture(cond, cond_in)
-                ctx, _, pooled = (o.detach().requires_grad_()
-                                  for o in self.cond(*cond_in))
-                self.eps = cuda_graphs.capture(
-                    eps, (noisy, t, ctx, pooled, time_ids))
-                self.dest = cuda_graphs.capture(
-                    eps, (noisy, t, *dest_in, time_ids))
-            except RuntimeError as e:
-                warnings.warn("SDXL Stage 1 runs eagerly at this shape: its "
-                              f"CUDA-graph capture failed ({e})")
-                self.cond = self.eps = self.dest = None
-                self.failed = True
-            torch.cuda.synchronize(noisy.device)
-            # the warm-up's blocks, cached for the capture's side stream
-            torch.cuda.empty_cache()
-
-
-# captured concept steps by UNet, then encoder 1, then encoder 2, then
-# shape; weakly keyed, so that a module's captures go with it
-_SDXL_GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
-
-
-def sdxl_step_graphs(text1, text2, unet, key: Tuple) -> SDXLStepGraphs:
-    """The ``SDXLStepGraphs`` of these modules at ``key``, new or
-    cached."""
-    by_text1 = _SDXL_GRAPHS.setdefault(unet, weakref.WeakKeyDictionary())
-    by_text2 = by_text1.setdefault(text1, weakref.WeakKeyDictionary())
-    return by_text2.setdefault(text2, {}).setdefault(key, SDXLStepGraphs())
-
-
-def sdxl_graph_blockers(text1, text2, unet, mesh=None) -> List[str]:
-    """``compute_z.graph_blockers`` over both encoders and the UNet: why a
-    concept's Stage-1 work cannot replay CUDA graphs here (empty where it
-    can)."""
-    why = graph_blockers(text1, unet, mesh)
-    return why + [w for w in graph_blockers(text2, unet, mesh)
-                  if w not in why]
-
-
-def sdxl_graph_key(text1, text2, unet, layers: Tuple[int, int], P: int,
-                   S: int, latent_hw: Tuple[int, int], device) -> Tuple:
-    """What a captured concept step is specific to, besides its modules:
-    the inject layers, the prompts and tokens, the latent size, the
-    dtypes, the device and the attention routing."""
-    return (layers, P, S, tuple(latent_hw),
-            *(next(m.parameters()).dtype for m in (text1, text2, unet)),
-            torch.device(device), _flash_min_seq(),
-            os.environ.get("EMCID_TPU_NO_FLASH"))
+def _capture_concept(cond, unet, cond_in, noisy, t, time_ids, dest_in
+                     ) -> Dict[str, cuda_graphs.Captured]:
+    """A concept's Stage-1 work at these inputs, captured: ``cond(ids,
+    ids_2, inj1, inj2)`` -> (ctx, pool1, pool2), the conditioning with
+    both injects (``cond``), backward into the injects; ``eps(noisy, t,
+    ctx, pool2, time_ids)`` -> (eps,), backward into ctx and pool2;
+    ``dest(noisy, t, ctx, pool2, time_ids)`` -> (eps,) at the dest's (ctx,
+    pool2) ``dest_in``, forward only."""
+    eps = lambda *a: _unet_eps(unet, *a)  # noqa: E731
+    cap = {"cond": cuda_graphs.capture(cond, cond_in)}
+    ctx, _, pooled = (o.detach().requires_grad_()
+                      for o in cap["cond"](*cond_in))
+    cap["eps"] = cuda_graphs.capture(eps, (noisy, t, ctx, pooled, time_ids))
+    cap["dest"] = cuda_graphs.capture(eps, (noisy, t, *dest_in, time_ids))
+    return cap
 
 
 def compute_z_sdxl_text_encoders(
@@ -300,12 +227,9 @@ def compute_z_sdxl_text_encoders(
         where = [reps[e] if 0 <= e < len(reps) else None for e in entry]
     apart = mesh is not None and mesh.spans_processes
 
-    graphs = None
-    if not hp.no_noise_loss and not sdxl_graph_blockers(text1, text2, unet,
-                                                        mesh):
-        graphs = sdxl_step_graphs(text1, text2, unet, sdxl_graph_key(
-            text1, text2, unet, (z1_layer, z2_layer), P, S,
-            mean.shape[3:5], dev))
+    graphs = None if hp.no_noise_loss else stage1_graphs(
+        (text1, text2, unet), ((z1_layer, z2_layer), P, S,
+                               tuple(mean.shape[3:5])), mesh)
     cond = lambda i1, i2, a, b: sdxl_condition(  # noqa: E731
         text1, text2, i1, i2, inject_1=(z1_layer, a), inject_2=(z2_layer, b))
 
@@ -344,10 +268,11 @@ def compute_z_sdxl_text_encoders(
             cond_in = (src_ids[c].to(d), src_ids_2[c].to(d), inj1, inj2)
             tids_d = tids.to(d)
             dest_in = (d_ctx[c].to(d), d_pool2_in[c].to(d))
-            graphed = graphs is not None and graphs.ready(
-                cond, un, cond_in, (noisy, t, tids_d), dest_in)
-            if graphed:
-                ctx, pool1, pool2 = graphs.cond(*cond_in)
+            cap = None if graphs is None else graphs.ready(
+                lambda: _capture_concept(cond, un, cond_in, noisy, t, tids_d,
+                                         dest_in), "SDXL Stage 1")
+            if cap is not None:
+                ctx, pool1, pool2 = cap["cond"](*cond_in)
             else:
                 ctx, pool1, pool2 = sdxl_condition(
                     tx1, tx2, *cond_in[:2], inject_1=(z1_layer, inj1),
@@ -357,13 +282,13 @@ def compute_z_sdxl_text_encoders(
                          + torch.sqrt(dc2.pow(2).sum() + 1e-12)
                          / z0n_2[c] ** 2)
             if not hp.no_noise_loss:
-                eps_e = (graphs.eps(noisy, t, ctx, pool2, tids_d)[0]
-                         if graphed
-                         else _unet_eps(un, noisy, t, ctx, pool2, tids_d))
+                eps_e = (_unet_eps(un, noisy, t, ctx, pool2, tids_d)
+                         if cap is None
+                         else cap["eps"](noisy, t, ctx, pool2, tids_d)[0])
                 with torch.no_grad(), span("stage1.dest"):
-                    eps_d = (graphs.dest(noisy, t, *dest_in, tids_d)[0]
-                             if graphed
-                             else _unet_eps(un, noisy, t, *dest_in, tids_d))
+                    eps_d = (_unet_eps(un, noisy, t, *dest_in, tids_d)
+                             if cap is None
+                             else cap["dest"](noisy, t, *dest_in, tids_d)[0])
                 mse_ablate = (eps_e - eps_d).pow(2).mean()
                 mse_noise = (eps_e - noise.permute(0, 3, 1, 2)).pow(2).mean()
                 loss = (samp_w[c] * mse_noise + (1.0 - samp_w[c]) * mse_ablate
@@ -374,8 +299,7 @@ def compute_z_sdxl_text_encoders(
                     + (pool2.float().to(dev) - d_pool2[c]).pow(2).mean())
             g1[c], g2[c] = torch.autograd.grad(loss, (dc1, dc2))
             concept_loss[c] = loss.detach()
-        count("stage1.eager_steps" if graphs is None or graphs.failed
-              else "stage1.graph_steps")
+        count_step(graphs)
         if apart:
             # each concept's rows from the process that ran it
             owner = torch.tensor([(c * mesh.size // C) // len(mesh.devices)

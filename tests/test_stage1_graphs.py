@@ -2,12 +2,14 @@
 ``engine/compute_z``) on the CPU at tiny widths, where no graph can be
 captured: the gate picks the eager path on the CPU, with a mesh, with
 hooks, under no-grad and with the fused norms, and the counters record
-eager steps there; a capture split at the K1-K4 autograd functions (fake
-graphs stand in for CUDA's) gives the unsplit forward and input gradients
-exactly, and each call it left out replays through the kernels' wrappers
-to the same outputs; the captures are keyed on the modules and the
-shapes, not the hparams, and go with their modules.  Replays on the card:
-``chip_smoke.py --stage1-graphs``."""
+eager steps there; a capture split at the K1-K4 autograd functions
+(``torch_parity.RecordingGraph`` stands in for CUDA's graph) gives the
+unsplit forward and input gradients exactly, and each call it left out
+replays through the kernels' wrappers to the same outputs; with recording
+graphs the whole Stage 1 gives the eager z exactly; the captures of SD's
+and SDXL's Stage 1 share one cache, keyed on the modules and the shapes,
+not the hparams, apart where the two share modules, and go with their
+modules.  Replays on the card: ``chip_smoke.py --stage1-graphs``."""
 
 import dataclasses
 import functools
@@ -24,8 +26,10 @@ from emcid_torch.engine.compute_z import (
     ZOptimizer,
     concept_batch_to_device,
     graph_blockers,
+    graph_key,
+    held_graphs,
     prepare_concept_batch,
-    step_graphs,
+    stage1_graphs,
 )
 from emcid_torch.models import unet as unet_mod
 from emcid_torch.models.loader import build_tiny_pipeline
@@ -33,20 +37,13 @@ from emcid_torch.models.unet import unet_taps
 from emcid_torch.ops import attention as attn_mod
 from emcid_torch.ops import flash_v2, graphs
 from emcid_torch.parallel import get_mesh
+from torch_parity import RecordingGraph, one_torch_thread, recorded  # noqa: F401
 
 STEPS = 3
 LATENT = 16  # 256 tokens at level 0: its self-attention reaches K1-K3
 KERNEL_MIN_SEQ = 256  # stands in for EMCID_TPU_FLASH_MIN_SEQ at this size
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
+COUNTERS = ("stage1.graph_steps", "stage1.eager_steps", "stage1.capture")
+GATE = compute_z.graph_blockers
 
 
 @pytest.fixture(scope="module")
@@ -90,18 +87,35 @@ def optimizer(comps, **change):
                       hparams(**change), layer=2, eps_pool=0)
 
 
-class FakeGraph:
-    """Stands in for ``torch.cuda.CUDAGraph`` on the CPU: captures nothing,
-    so the work between two cuts simply runs."""
+def stage1(comps, C=1):
+    """A Stage-1 block of ``C`` concepts under a recording -> (z, the
+    Stage-1 counters)."""
+    with profiling.recording("cpu") as rec:
+        zs = optimizer(comps).run(batch_of(comps, C))[0]
+    return zs, {k: v["n"] for k, v in rec.summary().items()
+                if k in COUNTERS}
 
-    def capture_begin(self, pool=None, capture_error_mode=None):
-        assert capture_error_mode == "relaxed"
 
-    def capture_end(self):
-        pass
+def on_cuda(*models, **k):
+    """``graph_blockers`` as on the card: without its ``device`` entry."""
+    return [w for w in GATE(*models, **k) if w != "device"]
 
-    def replay(self):
-        pass
+
+@pytest.fixture
+def graphs_on(monkeypatch, recorded):
+    """The graph path on the CPU: the gate as on the card, captures with
+    recording graphs, the CUDA synchronize and cache calls made no-ops."""
+    monkeypatch.setattr(compute_z, "graph_blockers", on_cuda)
+    monkeypatch.setattr(compute_z.cuda_graphs, "capture", functools.partial(
+        graphs.capture, graph_type=RecordingGraph))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+
+
+@pytest.fixture
+def ungated(monkeypatch):
+    """The cache reached on the CPU: a gate that finds nothing."""
+    monkeypatch.setattr(compute_z, "graph_blockers", lambda *a, **k: [])
 
 
 def kernel_route(q, k, v, scale=None):
@@ -189,7 +203,7 @@ def eager_items(items):
 
 def alternates(items) -> bool:
     """Graphs and eager calls in turn, a graph first and last."""
-    kinds = [isinstance(it, FakeGraph) for it in items]
+    kinds = [isinstance(it, RecordingGraph) for it in items]
     return kinds[0] and kinds[-1] and all(a != b for a, b in
                                           zip(kinds, kinds[1:]))
 
@@ -215,7 +229,7 @@ def test_gate_names_each_blocker(comps, monkeypatch, case):
             .register_forward_pre_hook(lambda *a: None)
     try:
         with torch.set_grad_enabled(case != "no_grad"):
-            why = graph_blockers(comps.text_encoder, comps.unet, mesh)
+            why = graph_blockers(comps.text_encoder, comps.unet, mesh=mesh)
     finally:
         if handle is not None:
             handle.remove()
@@ -270,7 +284,7 @@ def test_split_pass_equals_unsplit_exactly(comps, kernel_routes,
     calls = dict(wrapper_calls)
     wrapper_calls.clear()
     out1, grads1, fwd, bwd = passes(fn, inputs, gy,
-                                    graphs._Session(None, FakeGraph))
+                                    graphs._Session(None, RecordingGraph))
     assert wrapper_calls == calls
     for a, b in zip(out0 + grads0, out1 + grads1):
         assert torch.equal(a, b)
@@ -296,7 +310,8 @@ def test_split_pass_equals_unsplit_exactly(comps, kernel_routes,
 def test_left_out_calls_replay_through_the_wrappers(comps, kernel_routes,
                                                     wrapper_calls):
     fn, inputs, gy = eps_case(comps)
-    _, _, fwd, bwd = passes(fn, inputs, gy, graphs._Session(None, FakeGraph))
+    _, _, fwd, bwd = passes(fn, inputs, gy,
+                            graphs._Session(None, RecordingGraph))
     items = eager_items(fwd) + eager_items(bwd)
     kept = [[o.clone() for o in it.outs] for it in items]
     for it in items:
@@ -314,7 +329,7 @@ def test_left_out_calls_replay_through_the_wrappers(comps, kernel_routes,
 def test_capture_holds_no_module(kernel_routes):
     comps = build_tiny_pipeline(device="cpu")
     fn, inputs, _ = eps_case(comps)
-    cap = graphs.capture(fn, inputs, graph_type=FakeGraph)
+    cap = graphs.capture(fn, inputs, graph_type=RecordingGraph)
     ref = weakref.ref(comps.unet)
     assert cap.graphs == cap.eager_calls + 2
     del comps, fn
@@ -322,58 +337,88 @@ def test_capture_holds_no_module(kernel_routes):
     assert ref() is None
 
 
+# -- the graph path -------------------------------------------------------
+
+
+def test_graph_path_gives_the_eager_z_exactly(graphs_on, kernel_routes,
+                                              wrapper_calls):
+    comps = build_tiny_pipeline(device="cpu")
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(compute_z, "graph_blockers", GATE)
+        want, counts = stage1(comps)
+    assert counts == {"stage1.eager_steps": STEPS}
+    eager_calls = dict(wrapper_calls)
+    wrapper_calls.clear()
+    got, counts = stage1(comps)
+    assert counts == {"stage1.graph_steps": STEPS, "stage1.capture": 1}
+    assert torch.equal(got, want)
+    assert eager_calls["flash_fwd"] > 0 and eager_calls["short_kv_fwd"] > 0
+    assert eager_calls["flash_dq"] == eager_calls["flash_dkv"] > 0
+    # every K1-K4 launch of the replays is a wrapper call: the capture's
+    # two runs of the edited pass add two steps' worth of its calls to the
+    # eager block's (a step's forwards: the edited one and the eager dest)
+    fwd = ("flash_fwd", "short_kv_fwd")
+    assert wrapper_calls == {
+        k: n + 2 * (n // (2 * STEPS) if k in fwd else n // STEPS)
+        for k, n in eager_calls.items()}
+
+
+def test_one_capture_per_shape_then_replays(graphs_on, kernel_routes):
+    """The whole path with recording graphs: the first block captures
+    once, the second replays every step, and the captures go with the
+    models."""
+    comps = build_tiny_pipeline(device="cpu")
+    counts = [stage1(comps)[1] for _ in range(2)]
+    assert counts == [{"stage1.graph_steps": STEPS, "stage1.capture": 1},
+                      {"stage1.graph_steps": STEPS}]
+    models = (comps.text_encoder, comps.unet)
+    sg, = held_graphs(models).values()
+    assert sg.captured["eps"].eager_calls > 0
+    assert sg.captured["text"].eager_calls == 0
+    refs = [weakref.ref(m) for m in models]
+    del comps, models, sg
+    gc.collect()
+    assert all(r() is None for r in refs)
+
+
 # -- the cache ------------------------------------------------------------
 
 
-def test_key_ignores_hparams(comps):
+def test_key_ignores_hparams(comps, ungated):
     batch = batch_of(comps)
     a = optimizer(comps)
     b = optimizer(comps, v_lr=0.05, v_weight_decay=0.1,
                   cal_text_repr_loss=False, v_num_grad_steps=50)
-    assert a._graph_key(batch) == b._graph_key(batch)
-    key = a._graph_key(batch)
-    assert (step_graphs(comps.text_encoder, comps.unet, key)
-            is step_graphs(comps.text_encoder, comps.unet, key))
-    assert key != a._graph_key(batch_of(comps, 2))
+    models = (comps.text_encoder, comps.unet)
+    shapes = a.graph_shapes(batch)
+    assert shapes == b.graph_shapes(batch)
+    assert stage1_graphs(models, shapes) is stage1_graphs(
+        models, b.graph_shapes(batch))
+    assert graph_key(models, shapes) != graph_key(
+        models, a.graph_shapes(batch_of(comps, 2)))
 
 
-def test_captures_go_with_their_modules():
-    text, unet = torch.nn.Linear(2, 2), torch.nn.Linear(2, 2)
-    sg = step_graphs(text, unet, ("k",))
-    assert compute_z._STEP_GRAPHS[unet][text][("k",)] is sg
-    refs = weakref.ref(text), weakref.ref(unet)
-    del text
-    gc.collect()
-    assert refs[0]() is None and len(compute_z._STEP_GRAPHS[unet]) == 0
-    n = len(compute_z._STEP_GRAPHS)
-    del unet
-    gc.collect()
-    assert refs[1]() is None and len(compute_z._STEP_GRAPHS) == n - 1
-
-
-def test_one_capture_per_shape_then_replays(kernel_routes, monkeypatch):
-    """The whole path with fake graphs (their replays compute nothing, so
-    only the counts are checked): the first block captures once, the
-    second replays every step, and the captures go with the models."""
-    comps = build_tiny_pipeline(device="cpu")
-    monkeypatch.setattr(compute_z, "graph_blockers", lambda *a, **k: [])
-    monkeypatch.setattr(compute_z.cuda_graphs, "capture", functools.partial(
-        graphs.capture, graph_type=FakeGraph))
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
-    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
-    counts = []
-    for _ in range(2):
-        with profiling.recording("cpu") as rec:
-            optimizer(comps).run(batch_of(comps))
-        counts.append({k: v["n"] for k, v in rec.summary().items()
-                       if k in ("stage1.graph_steps", "stage1.eager_steps",
-                                "stage1.capture")})
-    assert counts == [{"stage1.graph_steps": STEPS, "stage1.capture": 1},
-                      {"stage1.graph_steps": STEPS}]
-    sg = next(iter(compute_z._STEP_GRAPHS[comps.unet][
-        comps.text_encoder].values()))
-    assert sg.eps.eager_calls > 0 and sg.text.eager_calls == 0
-    refs = weakref.ref(comps.unet), weakref.ref(comps.text_encoder)
-    del comps, sg
-    gc.collect()
-    assert refs[0]() is None and refs[1]() is None
+@pytest.mark.parametrize("case", ["sd", "sdxl", "sd_beside_sdxl"])
+def test_captures_go_with_their_modules(ungated, case):
+    """SD's (text, unet) and SDXL's (text1, text2, unet): a capture goes
+    with any one of its modules; over shared modules (SDXL's encoder 1 and
+    UNet in SD's Stage 1) the two sit apart."""
+    if case == "sd_beside_sdxl":
+        text1, text2, unet = (torch.nn.Linear(2, 2) for _ in range(3))
+        sd = stage1_graphs((text1, unet), ("k",))
+        xl = stage1_graphs((text1, text2, unet), ("k",))
+        assert sd is not xl
+        assert stage1_graphs((text1, unet), ("k",)) is sd
+        assert stage1_graphs((text1, text2, unet), ("k",)) is xl
+        assert list(held_graphs((text1, unet)).values()) == [sd]
+        assert list(held_graphs((text1, text2, unet)).values()) == [xl]
+        return
+    n = 2 if case == "sd" else 3
+    for gone in range(n):
+        models = [torch.nn.Linear(2, 2) for _ in range(n)]
+        sg = stage1_graphs(models, ("k",))
+        assert held_graphs(models)[graph_key(models, ("k",))] is sg
+        refs = weakref.ref(sg), weakref.ref(models[gone])
+        del models[gone], sg
+        gc.collect()
+        assert refs[0]() is None and refs[1]() is None

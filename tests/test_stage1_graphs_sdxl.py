@@ -1,41 +1,45 @@
-"""SDXL Stage 1's CUDA-graph path (``engine/sdxl.SDXLStepGraphs`` over
-``ops/graphs``) on the CPU at tiny widths.  ``RecordingGraph`` stands in
-for CUDA's graph: it records the ATen calls made while it is open and a
-replay makes them again on the same tensors, so a replay computes what
-the capture did, at the inputs copied in since.  With it the graph path
-gives the eager path's z exactly, a forward-only capture gives the
-uncaptured forward and replays its K1/K4 calls through their wrappers,
-and two blocks capture once and then only replay.  The gate keeps the
-path eager on the CPU, with a mesh, with hooks on any of the three models,
-under no-grad and with the fused norms, and those steps count as eager;
-the captures are keyed on the modules and the shapes, not the hparams,
-and go with their modules.  Replays on the card: ``chip_smoke.py
---stage1-graphs``."""
-
-import functools
-import gc
-import weakref
+"""SDXL Stage 1's CUDA-graph path (``engine/sdxl._capture_concept``, held
+by ``compute_z.StepGraphs`` over ``ops/graphs``) on the CPU at tiny
+widths.  ``torch_parity.RecordingGraph`` stands in for CUDA's graph: it
+records the ATen calls made while it is open and a replay makes them
+again on the same tensors, so a replay computes what the capture did, at
+the inputs copied in since.  With it the graph path gives the eager
+path's z exactly, a forward-only capture gives the uncaptured forward and
+replays its K1/K4 calls through their wrappers, and two blocks capture
+once and then only replay.  The gate keeps the path eager on the CPU,
+with a mesh, with hooks on any of the three models, under no-grad and
+with the fused norms, and those steps count as eager; the captures are
+keyed on the modules and the shapes, not the hparams.  Replays on the
+card: ``chip_smoke.py --stage1-graphs``."""
 
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from emcid_torch import profiling
 from emcid_torch.engine import compute_z, sdxl
-from emcid_torch.engine.sdxl import (
-    compute_z_sdxl_text_encoders,
-    sdxl_graph_blockers,
-    sdxl_graph_key,
-    sdxl_step_graphs,
+from emcid_torch.engine.compute_z import (
+    graph_blockers,
+    graph_key,
+    held_graphs,
+    stage1_graphs,
 )
+from emcid_torch.engine.sdxl import compute_z_sdxl_text_encoders
 from emcid_torch.hparams import EMCIDXLHyperParams
 from emcid_torch.models import unet as unet_mod
 from emcid_torch.models.sdxl import build_tiny_sdxl_pipeline, sdxl_time_ids
 from emcid_torch.ops import attention as attn_mod
 from emcid_torch.ops import flash_v2, graphs
 from emcid_torch.parallel import get_mesh
-from test_stage1_graphs import one_torch_thread, wrapper_calls  # noqa: F401
+from test_stage1_graphs import (  # noqa: F401
+    COUNTERS,
+    GATE,
+    graphs_on,
+    on_cuda,
+    ungated,
+    wrapper_calls,
+)
+from torch_parity import RecordingGraph, one_torch_thread, recorded  # noqa: F401
 
 STEPS = 3
 LATENT = 16  # 64 tokens at the attention level
@@ -49,7 +53,6 @@ REQUESTS = [
     {"prompts": ["a photo of a {}", "an image of a {}", "{}"],
      "source": "dog", "dest": "cat", "seed_train": 1, "txt_align": False},
 ]
-COUNTERS = ("stage1.graph_steps", "stage1.eager_steps", "stage1.capture")
 
 
 def tiny():
@@ -95,58 +98,6 @@ def stage1(comps, hp, C=2, mesh=None):
                 if k in COUNTERS}
 
 
-class RecordingGraph:
-    """Stands in for ``torch.cuda.CUDAGraph`` on the CPU: the ATen calls
-    made while it is open (``Recorder`` sees them) are its graph, and a
-    replay makes them again on the same tensors, writing each result over
-    the tensor the capture got, as a CUDA graph rewrites its buffers."""
-
-    def __init__(self):
-        self.calls = []
-        self.open = False
-
-    def capture_begin(self, pool=None, capture_error_mode=None):
-        assert capture_error_mode == "relaxed"
-        self.open = True
-
-    def capture_end(self):
-        self.open = False
-
-    def replay(self):
-        for func, args, kwargs, out in self.calls:
-            for old, new in zip(_tensors(out), _tensors(func(*args,
-                                                             **kwargs))):
-                # a view or an in-place result is already where it was
-                if (old.untyped_storage().data_ptr()
-                        != new.untyped_storage().data_ptr()):
-                    old.copy_(new)
-
-
-def _tensors(x):
-    return [t for t in (x if isinstance(x, (tuple, list)) else (x,))
-            if isinstance(t, torch.Tensor)]
-
-
-class Recorder(TorchDispatchMode):
-    """Hands each ATen call to the ``RecordingGraph`` open in the capture
-    in progress, if any (autograd's backward included)."""
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        out = func(*args, **kwargs)
-        s = graphs._SESSION
-        if s is not None and isinstance(s.graph, RecordingGraph) \
-                and s.graph.open:
-            s.graph.calls.append((func, args, kwargs, out))
-        return out
-
-
-@pytest.fixture
-def recorded():
-    with Recorder():
-        yield
-
-
 def kernel_route(q, k, v, scale=None):
     """``ops.attention.attention`` as it routes CUDA tensors, on the CPU
     (the wrappers compute their plain versions there), at this size's
@@ -164,26 +115,13 @@ def kernel_routes(monkeypatch):
     monkeypatch.setattr(unet_mod, "attention", kernel_route)
 
 
-def on_cuda(*a, **k):
-    """``graph_blockers`` as on the card: without its ``device`` entry."""
-    return [w for w in compute_z.graph_blockers(*a, **k) if w != "device"]
-
-
-@pytest.fixture
-def graphs_on(monkeypatch, kernel_routes, recorded):
-    """The graph path on the CPU: the gate as on the card, captures with
-    recording graphs, the CUDA synchronize and cache calls made no-ops."""
-    monkeypatch.setattr(sdxl, "graph_blockers", on_cuda)
-    monkeypatch.setattr(sdxl.cuda_graphs, "capture", functools.partial(
-        graphs.capture, graph_type=RecordingGraph))
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
-    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+def models(comps):
+    return comps.text_encoder, comps.text_encoder_2, comps.unet
 
 
 def held(comps):
     """The captures held for these components' modules."""
-    return [g for by_text2 in sdxl._SDXL_GRAPHS[comps.unet].values()
-            for per_key in by_text2.values() for g in per_key.values()]
+    return list(held_graphs(models(comps)).values())
 
 
 # -- the graph path -------------------------------------------------------
@@ -192,11 +130,12 @@ def held(comps):
 def eager(comps, hp):
     """``stage1`` with the gate as it is on the CPU."""
     with pytest.MonkeyPatch.context() as m:
-        m.setattr(sdxl, "graph_blockers", compute_z.graph_blockers)
+        m.setattr(compute_z, "graph_blockers", GATE)
         return stage1(comps, hp)
 
 
-def test_graph_path_gives_the_eager_z_exactly(graphs_on, wrapper_calls):
+def test_graph_path_gives_the_eager_z_exactly(graphs_on, kernel_routes,
+                                              wrapper_calls):
     comps = tiny()
     want, counts = eager(comps, hparams())
     assert counts == {"stage1.eager_steps": STEPS}
@@ -216,8 +155,9 @@ def test_graph_path_gives_the_eager_z_exactly(graphs_on, wrapper_calls):
     # the encoders reach no kernel (their sequences are short); the dest
     # forward has no backward
     sg, = held(comps)
-    assert sg.cond.eager_calls == 0 and sg.eps.eager_calls > 0
-    assert sg.dest.eager_calls > 0 and not sg.dest.bwd
+    cap = sg.captured
+    assert cap["cond"].eager_calls == 0 and cap["eps"].eager_calls > 0
+    assert cap["dest"].eager_calls > 0 and not cap["dest"].bwd
 
 
 def test_forward_only_capture_replays_k1_k4_through_wrappers(
@@ -249,7 +189,7 @@ def test_forward_only_capture_replays_k1_k4_through_wrappers(
     assert not got.requires_grad and torch.equal(got, want)
 
 
-def test_one_capture_then_replays_across_blocks(graphs_on):
+def test_one_capture_then_replays_across_blocks(graphs_on, kernel_routes):
     """Two blocks at other hparams: the first captures once, the second
     only replays, and its z is the eager z at its own hparams."""
     comps = tiny()
@@ -288,24 +228,23 @@ def test_gate_names_each_blocker(comps, monkeypatch, case):
             .register_forward_hook(lambda *a: None)
     try:
         with torch.set_grad_enabled(case != "no_grad"):
-            why = sdxl_graph_blockers(comps.text_encoder,
-                                      comps.text_encoder_2, comps.unet, mesh)
-            alone = on_cuda(comps.text_encoder, comps.unet, mesh)
+            why = graph_blockers(*models(comps), mesh=mesh)
+            alone = on_cuda(comps.text_encoder, comps.unet, mesh=mesh)
     finally:
         if handle is not None:
             handle.remove()
     assert want in why and why[0] == "device"  # the CPU blocks every case
     assert (len(why) == 1) == (case == "cpu")
-    # encoder 2's hooks are seen only through the SDXL gate
+    # encoder 2's hooks are seen only where the gate is given encoder 2
     assert (want in alone) == (case not in ("cpu", "text2_hook"))
 
 
 @pytest.mark.parametrize("case", ["cpu", "mesh", "text2_hook", "fused_gn"])
-def test_blocked_steps_stay_eager_and_are_counted(graphs_on, monkeypatch,
-                                                  case):
+def test_blocked_steps_stay_eager_and_are_counted(graphs_on, kernel_routes,
+                                                  monkeypatch, case):
     comps = tiny()
     if case == "cpu":
-        monkeypatch.setattr(sdxl, "graph_blockers", compute_z.graph_blockers)
+        monkeypatch.setattr(compute_z, "graph_blockers", GATE)
     if case == "fused_gn":
         monkeypatch.setenv("EMCID_TPU_FUSED_GN", "1")
     handle = None
@@ -319,35 +258,29 @@ def test_blocked_steps_stay_eager_and_are_counted(graphs_on, monkeypatch,
         if handle is not None:
             handle.remove()
     assert counts == {"stage1.eager_steps": 2}
-    assert comps.unet not in sdxl._SDXL_GRAPHS
+    assert not held(comps)
 
 
 # -- the cache ------------------------------------------------------------
 
 
-def test_key_is_the_modules_and_shapes(comps):
-    args = (comps.text_encoder, comps.text_encoder_2, comps.unet, (1, 2))
-    key = sdxl_graph_key(*args, 3, 16, (LATENT, LATENT), "cpu")
-    assert key == sdxl_graph_key(*args, 3, 16, (LATENT, LATENT),
-                                 torch.device("cpu"))
-    assert all(key != sdxl_graph_key(*args, *other, "cpu") for other in (
-        (2, 16, (LATENT, LATENT)), (3, 16, (LATENT, 2 * LATENT))))
-    assert key != sdxl_graph_key(*args[:3], (0, 2), 3, 16, (LATENT, LATENT),
-                                 "cpu")
-    mods = args[:3]
-    assert sdxl_step_graphs(*mods, key) is sdxl_step_graphs(*mods, key)
-
-
-def test_captures_go_with_their_modules():
-    text1, text2, unet = (torch.nn.Linear(2, 2) for _ in range(3))
-    sg = sdxl_step_graphs(text1, text2, unet, ("k",))
-    assert sdxl._SDXL_GRAPHS[unet][text1][text2][("k",)] is sg
-    refs = [weakref.ref(m) for m in (text1, text2, unet)]
-    del text2
-    gc.collect()
-    assert refs[1]() is None and len(sdxl._SDXL_GRAPHS[unet][text1]) == 0
-    n = len(sdxl._SDXL_GRAPHS)
-    del text1, unet
-    gc.collect()
-    assert refs[0]() is None and refs[2]() is None
-    assert len(sdxl._SDXL_GRAPHS) == n - 1
+def test_key_is_the_modules_and_shapes(comps, ungated, monkeypatch):
+    mods = models(comps)
+    shapes = ((1, 2), 3, 16, (LATENT, LATENT))
+    key = graph_key(mods, shapes)
+    assert key == graph_key(mods, shapes)
+    assert all(key != graph_key(mods, other) for other in (
+        ((1, 2), 2, 16, (LATENT, LATENT)),
+        ((1, 2), 3, 16, (LATENT, 2 * LATENT)),
+        ((0, 2), 3, 16, (LATENT, LATENT))))
+    # a module's dtype and the attention routing
+    lin = [torch.nn.Linear(2, 2) for _ in range(3)]
+    monkeypatch.delenv("EMCID_TPU_NO_FLASH", raising=False)
+    key = graph_key(lin, shapes)
+    monkeypatch.setenv("EMCID_TPU_NO_FLASH", "1")
+    assert key != graph_key(lin, shapes)
+    monkeypatch.delenv("EMCID_TPU_NO_FLASH")
+    assert key == graph_key(lin, shapes)
+    lin[1].double()
+    assert key != graph_key(lin, shapes)
+    assert stage1_graphs(mods, shapes) is stage1_graphs(mods, shapes)

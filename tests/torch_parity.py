@@ -9,9 +9,11 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from emcid_torch.models import configs as tcfg
 from emcid_torch.models.loader import from_jax
+from emcid_torch.ops import graphs
 from emcid_torch.text.tokenizer import CLIPBPETokenizer
 
 TINY_WORDS = ["cat", "dog", "w1", "w2"]
@@ -60,6 +62,62 @@ def one_torch_thread():
         yield
     finally:
         torch.set_num_threads(n)
+
+
+class RecordingGraph:
+    """Stands in for ``torch.cuda.CUDAGraph`` on the CPU: the ATen calls
+    made while it is open (``Recorder`` sees them) are its graph, and a
+    replay makes them again on the same tensors, writing each result over
+    the tensor the capture got, as a CUDA graph rewrites its buffers.
+    Without a ``Recorder`` active it records nothing, so the work between
+    two cuts simply runs and a replay computes nothing."""
+
+    def __init__(self):
+        self.calls = []
+        self.open = False
+
+    def capture_begin(self, pool=None, capture_error_mode=None):
+        assert capture_error_mode == "relaxed"
+        self.open = True
+
+    def capture_end(self):
+        self.open = False
+
+    def replay(self):
+        for func, args, kwargs, out in self.calls:
+            for old, new in zip(_tensors(out), _tensors(func(*args,
+                                                             **kwargs))):
+                # a view or an in-place result is already where it was
+                if (old.untyped_storage().data_ptr()
+                        != new.untyped_storage().data_ptr()):
+                    old.copy_(new)
+
+
+def _tensors(x):
+    return [t for t in (x if isinstance(x, (tuple, list)) else (x,))
+            if isinstance(t, torch.Tensor)]
+
+
+class Recorder(TorchDispatchMode):
+    """Hands each ATen call to the ``RecordingGraph`` open in the capture
+    in progress, if any (autograd's backward included)."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        s = graphs._SESSION
+        if s is not None and isinstance(s.graph, RecordingGraph) \
+                and s.graph.open:
+            s.graph.calls.append((func, args, kwargs, out))
+        return out
+
+
+@pytest.fixture
+def recorded():
+    """A ``Recorder`` active for the test: captures with ``RecordingGraph``
+    replay what they recorded."""
+    with Recorder():
+        yield
 
 
 def port_sdxl_components(comps, dtype=torch.float32):
