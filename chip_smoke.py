@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only   # phases 1-2, no device line
     python3 chip_smoke.py --stage1-graphs  # phases 1, 3b and 8b
+    python3 chip_smoke.py --stage1-pool    # phases 1 and 3c
 
 (``--dcn-worker SPEC`` is one rank of phase 7f, which the script starts
 itself under ``python -m torch.distributed.run``.)
@@ -36,6 +37,13 @@ Phases, each printing one JSON line:
    shapes and the bench warm-up's, z both ways, the K1-K4 launches per
    route, the Stage-1 counters (steps replayed, eager steps, captures),
    the step's milliseconds and the peak memory;
+3c. the eps_dest pool's stacked UNet calls on that pipeline
+   (``stage1_pool_path``): the no-grad forward's device milliseconds a
+   row at 48 x 48 latents from 3 to 72 rows a call (the sweep that sets
+   ``compute_z.POOL_CALL_POSITIONS``), then ``b1``- and ``b8``-shaped
+   Stage-1 blocks with the pool one draw a call and stacked: the pool's
+   device seconds, ``stage1.pool_calls``, the K1-K4 launches per route, the
+   peak memory and z both ways;
 4. the variant paths on that pipeline, each with the launch count of every
    kernel and route during its run, its seconds and checks of what comes
    out: (a) EWC with the UCE hybrid (the Fisher diagonal computed over 4
@@ -1013,7 +1021,8 @@ def stage1_block(torch, comps, C, hp, pool, seed, eager):
     """One Stage-1 block of ``C`` concepts x 3 prompts at 384 px (48x48
     latents drawn from ``seed``) on the full-width pipeline, under a
     recording: its z, z0, seconds, peak memory, the K1-K4 launches per
-    route, the span summary and the Stage-1 counters."""
+    route, the span summary, the Stage-1 counters and the eps_dest
+    pool's device and host seconds."""
     from emcid_torch import profiling
     from emcid_torch.engine import compute_z
     from emcid_torch.engine.compute_z import (
@@ -1057,8 +1066,10 @@ def stage1_block(torch, comps, C, hp, pool, seed, eager):
         step_ms=1e3 * statistics.median(step["device_s"]),
         step_host_ms=1e3 * statistics.median(step["host_s"]),
         counts={k: summ[k]["n"] for k in (
-            "stage1.graph_steps", "stage1.eager_steps", "stage1.capture")
-            if k in summ},
+            "stage1.graph_steps", "stage1.eager_steps", "stage1.capture",
+            "stage1.pool_calls") if k in summ},
+        pool_s=sum(summ.get("stage1.pool", {}).get("device_s", [])),
+        pool_host_s=sum(summ.get("stage1.pool", {}).get("host_s", [])),
         capture_s=sum(summ.get("stage1.capture", {}).get("host_s", [])),
         replay=None if sg is None or not sg.captured else {
             "graph_launches": sum(c.graphs for c in sg.captured.values()),
@@ -1134,6 +1145,173 @@ def stage1_graphs_path(torch, comps, failures):
         rows.append(row)
         if not row["ok"]:
             failures.append(f"stage1 graphs {label}: {row}")
+    return rows
+
+
+# the eps_dest pool's no-grad UNet forward at 48 x 48 latents, rows a call
+POOL_SWEEP_ROWS = (3, 6, 12, 18, 24, 36, 48, 72)
+POOL_SWEEP_CALLS = 10
+
+
+def pool_sweep(torch, comps):
+    """The SD-v1.4 no-grad UNet forward as the eps_dest pool calls it
+    (``ZOptimizer._eps``: channels-last bf16 latents, a timestep per row,
+    77-token text states) at 48 x 48 latents, ``POOL_SWEEP_CALLS`` calls
+    back to back at each of ``POOL_SWEEP_ROWS``: device milliseconds a call
+    (CUDA events around the calls) and a row, TFLOP/s, the host's
+    milliseconds to enqueue a call and the peak memory a call adds; and
+    the fewest rows whose time a row is within 5% of the sweep's least,
+    which sets ``compute_z.POOL_CALL_POSITIONS``."""
+    from emcid_torch.engine.compute_z import ZOptimizer
+    from emcid_torch.profiling import PEAK_TFLOPS, unet_fwd_flops
+
+    unet = comps.unet
+    hidden = comps.text_encoder.config.hidden_size
+    dtype = next(unet.parameters()).dtype
+    g = torch.Generator(device="cuda").manual_seed(5)
+    points = []
+    with torch.no_grad():
+        for rows in POOL_SWEEP_ROWS:
+            x = torch.randn((rows, 48, 48, 4), generator=g,
+                            device="cuda").permute(0, 3, 1, 2)
+            t = torch.randint(0, 1000, (rows,), generator=g, device="cuda")
+            ctx = torch.randn((rows, 77, hidden), generator=g,
+                              device="cuda").to(dtype)
+            for _ in range(2):
+                ZOptimizer._eps(unet, x, t, ctx)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            h0 = time.perf_counter()
+            ev0.record()
+            for _ in range(POOL_SWEEP_CALLS):
+                ZOptimizer._eps(unet, x, t, ctx)
+            ev1.record()
+            host_ms = (time.perf_counter() - h0) * 1e3 / POOL_SWEEP_CALLS
+            torch.cuda.synchronize()
+            ms = ev0.elapsed_time(ev1) / POOL_SWEEP_CALLS
+            points.append(dict(
+                rows=rows, positions=rows * 48 * 48, ms=ms,
+                ms_per_row=ms / rows, host_enqueue_ms=host_ms,
+                tflops=unet_fwd_flops(unet.config, rows, 48) / ms * 1e-9,
+                peak_add_gib=(torch.cuda.max_memory_allocated() - base)
+                / 2 ** 30))
+    plateau = min(p["ms_per_row"] for p in points)
+    for p in points:
+        p["per_row_over_plateau"] = p["ms_per_row"] / plateau
+        p["mfu"] = p["tflops"] / PEAK_TFLOPS
+    knee = next(p for p in points if p["ms_per_row"] <= 1.05 * plateau)
+    return dict(phase="stage1_pool_sweep", latent=48, calls=POOL_SWEEP_CALLS,
+                points=points, knee_rows=knee["rows"],
+                knee_positions=knee["positions"])
+
+
+def stage1_pool_path(torch, comps, failures):
+    """The eps_dest pool as stacked calls against one draw a call, on the
+    full-width bf16 pipeline: first ``pool_sweep``, then at ``b1``'s and
+    ``b8``'s shapes (1 and 8 concepts x 3 prompts, the K=25 pool, 30
+    cosine steps replayed from graphs) Stage-1 blocks with the pool one
+    draw a call (O) and as ``compute_z.pool_calls`` plans it (S), in the
+    order OSOS.  Per row: the plan, the ``stage1.pool`` device and host
+    seconds, ``stage1.pool_calls``, the K1-K4 launches per route (no
+    ``fma``), peak and reserved memory, the pools of the last blocks both
+    ways, and z stacked against one draw a call (the gap as
+    ``STAGE1_GRAPHS_TOL`` measures it, |z - z'| over |z - z0| per
+    concept).  Where the plan is one draw a call, the pool and z must be
+    the same bits; else the noisy latents and timesteps must be, and the
+    stacked eps (bf16) may differ from the one-draw eps by at most twice
+    as much as that differs from the same draws' eps through an f32 copy
+    of the UNet (two bf16 evaluations each that far from f32, by the
+    triangle inequality): the other batch rounds otherwise, where a wrong
+    row or draw would read O(1)."""
+    from unittest import mock
+
+    from emcid_torch.engine import compute_z
+
+    sweep = pool_sweep(torch, comps)
+    sweep["budget_positions"] = compute_z.POOL_CALL_POSITIONS
+    emit(sweep)
+    rows = [sweep]
+    K = 25
+    for label, C in (("b1", 1), ("b8", 8)):
+        plan = compute_z.pool_calls(K, 3 * C, 48, 48)
+        runs = {"O": [], "S": []}
+        pools = {}
+        build = compute_z.ZOptimizer._build_pool
+
+        def keep(self, shards, states, *a, _k, **kw):
+            out = build(self, shards, states, *a, **kw)
+            pools[_k], pools["ctx"] = out[0], states[0]["dest_hidden"]
+            return out
+
+        for k in "OSOS":
+            with contextlib.ExitStack() as stack:
+                if k == "O":
+                    stack.enter_context(mock.patch.object(
+                        compute_z, "pool_calls", lambda n, *a: [1] * n))
+                stack.enter_context(mock.patch.object(
+                    compute_z.ZOptimizer, "_build_pool",
+                    functools.partialmethod(keep, _k=k)))
+                runs[k].append(stage1_block(torch, comps, C,
+                                            bench_hparams(50), K, 11, False))
+        one, stacked = runs["O"][-1], runs["S"][-1]
+        eps_one = pools["O"]["eps_dest"]
+        eps_rel = float((pools["S"]["eps_dest"] - eps_one).norm()
+                        / eps_one.norm())
+        bf16_rel = stacked_rel = None
+        if plan != [1] * K:
+            unet32 = copy.deepcopy(comps.unet).float()
+            with torch.no_grad():
+                eps32 = torch.stack([compute_z.ZOptimizer._eps(
+                    unet32, x, t, pools["ctx"].float())
+                    for x, t in zip(pools["O"]["noisy"], pools["O"]["t"])])
+            bf16_rel = float((eps_one - eps32).norm() / eps32.norm())
+            stacked_rel = float((pools["S"]["eps_dest"] - eps32).norm()
+                                / eps32.norm())
+            del unet32, eps32
+            torch.cuda.empty_cache()
+        gap = float(((stacked["z"] - one["z"]).norm(dim=-1) / (
+            one["z"] - one["z0"]).norm(dim=-1).clamp_min(1e-30)).max())
+        row = dict(
+            phase="stage1_pool", shape=label, concepts=C, rows=3 * C,
+            eps_pool=K, plan=plan, order="OSOS",
+            pool_s={k: [r["pool_s"] for r in v] for k, v in runs.items()},
+            pool_host_s={k: [r["pool_host_s"] for r in v]
+                         for k, v in runs.items()},
+            pool_calls={k: [r["counts"].get("stage1.pool_calls")
+                            for r in v] for k, v in runs.items()},
+            block_s={k: [r["seconds"] for r in v] for k, v in runs.items()},
+            step_ms={k: [r["step_ms"] for r in v] for k, v in runs.items()},
+            routes={k: v[-1]["routes"] for k, v in runs.items()},
+            peak_gib={k: [r["peak_gib"] for r in v] for k, v in runs.items()},
+            reserved_gib={k: [r["reserved_gib"] for r in v]
+                          for k, v in runs.items()},
+            pool_draws_bitwise=all(torch.equal(pools["S"][n], pools["O"][n])
+                                   for n in ("noisy", "t")),
+            eps_rel=eps_rel, one_against_f32_rel=bf16_rel,
+            stacked_against_f32_rel=stacked_rel,
+            eps_bitwise=bool(torch.equal(pools["S"]["eps_dest"],
+                                         pools["O"]["eps_dest"])),
+            z_bitwise=bool(torch.equal(stacked["z"], one["z"])),
+            z_gap=gap,
+            z_bitwise_again={k: bool(torch.equal(v[0]["z"], v[-1]["z"]))
+                             for k, v in runs.items()})
+        row["ok"] = (
+            row["pool_calls"]["O"] == [K, K]
+            and row["pool_calls"]["S"] == [len(plan)] * 2
+            and row["pool_draws_bitwise"]
+            and (row["z_bitwise"] and row["eps_bitwise"] if plan == [1] * K
+                 else eps_rel <= 2 * bf16_rel)
+            and all(r[a]["fma"] == 0 for r in row["routes"].values()
+                    for a in ATTENTION)
+            and all(r[a]["mma"] > 0 for r in row["routes"].values()
+                    for a in ATTENTION))
+        emit(row)
+        rows.append(row)
+        if not row["ok"]:
+            failures.append(f"stage1 pool {label}: {row}")
     return rows
 
 
@@ -4473,8 +4651,10 @@ def sdxl_stage1_block(torch, ref, hp, mean, logvar, seed, eager):
         concept_step_host_ms=ms(step["host_s"]) / C,
         dest_ms=ms(dest["device_s"]),
         counts={k: summ[k]["n"] for k in (
-            "stage1.graph_steps", "stage1.eager_steps", "stage1.capture")
-            if k in summ},
+            "stage1.graph_steps", "stage1.eager_steps", "stage1.capture",
+            "stage1.pool_calls") if k in summ},
+        pool_s=sum(summ.get("stage1.pool", {}).get("device_s", [])),
+        pool_host_s=sum(summ.get("stage1.pool", {}).get("host_s", [])),
         capture_s=sum(summ.get("stage1.capture", {}).get("host_s", [])))
 
 
@@ -4829,6 +5009,16 @@ def main(argv=None) -> int:
         walls[label] = now - lap_t[0]
         lap_t[0] = now
 
+    if "--stage1-pool" in argv:
+        from emcid_torch.models.loader import build_random_pipeline
+
+        comps = build_random_pipeline("sd-v1.4", dtype=torch.bfloat16,
+                                      seed=0, device="cuda")
+        with environ(**dict.fromkeys(KNOBS)):
+            stage1_pool_path(torch, comps, failures)
+        for f in failures:
+            print(f"FAILED: {f}", file=sys.stderr)
+        return 1 if failures else 0
     if "--stage1-graphs" in argv:
         from emcid_torch.models.loader import build_random_pipeline
 
@@ -4859,6 +5049,9 @@ def main(argv=None) -> int:
         with environ(**dict.fromkeys(KNOBS)):
             stage1_graphs_path(torch, comps, failures)
         lap("stage1_graphs_path")
+        with environ(**dict.fromkeys(KNOBS)):
+            stage1_pool_path(torch, comps, failures)
+        lap("stage1_pool_path")
         variants_path(torch, comps, stats_dir, failures)
         seam_check(torch, comps, failures)
         lap("variants_path")

@@ -35,6 +35,16 @@ makes the optimization comparable with the JAX package's given the same
 training images.  With an override the eps_dest pool and the cosine
 schedule do not engage (as in JAX).
 
+The eps_dest pool (``eps_pool`` K > 0).  Its K draws come from the
+block's generator first, in order, as the JAX package makes them; their
+no-grad UNet evaluations then run as a few stacked calls, not one call a
+draw.  ``pool_calls`` plans them from what a call would hold, the rows a
+draw (C_s x P on a shard) times the latent area, against one budget of
+latent positions (``POOL_CALL_POSITIONS``): a small block stacks several
+draws a call and keeps the card busy, a large one keeps one draw a call.
+A shard stacks only its own rows.  The pool is one ``stage1.pool`` span
+and each UNet call a ``stage1.pool_calls`` count.
+
 CUDA graphs, here and in SDXL's Stage 1 (``engine/sdxl``).  On the card
 a step's gradient pass replays captured graphs (``ops/graphs``); here the
 text model's forward with the injected delta and its backward into the
@@ -330,6 +340,28 @@ def stage1_graphs(models: Sequence[torch.nn.Module], shapes: Tuple,
         StepGraphs(next(models[0].parameters()).device))
 
 
+# latent positions (rows x h x w) that one stacked no-grad UNet call of
+# the eps_dest pool may take: the fewest rows at 48 x 48 whose device time
+# a row came within 5% of its plateau on an H100 80GB HBM3 at 700 W (36
+# rows: 2.14 ms a row against 2.06 at 72, 2.24 at 24 and 9.73 at 3;
+# ``chip_smoke.py --stage1-pool``); it also bounds what such a call holds
+# in memory at one time
+POOL_CALL_POSITIONS = 36 * 48 * 48
+
+
+def pool_calls(K: int, rows: int, h: int, w: int) -> List[int]:
+    """Draws per UNet call of a K-draw eps_dest pool of ``rows`` rows a
+    draw at h x w latents, in draw order: the fewest calls whose rows x h
+    x w stay within ``POOL_CALL_POSITIONS`` (one draw a call where a draw
+    alone passes it), the draws split as evenly as possible, the larger
+    calls first."""
+    if K <= 0:
+        return []
+    n = -(-K // max(1, POOL_CALL_POSITIONS // (rows * h * w)))
+    base, extra = divmod(K, n)
+    return [base + 1] * extra + [base] * (n - extra)
+
+
 class _Shard(NamedTuple):
     """One mesh entry's concept rows and the models it runs."""
 
@@ -461,24 +493,35 @@ class ZOptimizer:
                     ) -> List[Dict[str, torch.Tensor]]:
         """K (noisy, t, eps_dest[, eps_src]) draws per shard, (K, C_s*P,
         ...): the draws come from ``gen`` for the whole block in order,
-        then are padded and split by concept."""
+        then are padded and split by concept.  Each shard evaluates its
+        draws in the stacked UNet calls that ``pool_calls`` plans for its
+        rows and latent area: a call takes several consecutive draws as one
+        batch, each row at its own timestep, against the text states
+        repeated once per draw, and its output is split back per draw.
+        Each call counts as ``stage1.pool_calls``."""
         draws = [tuple(padded(a) for a in self._draw(batch, gen))
                  for _ in range(K)]
+        h, w = batch.latents_mean.shape[3:5]
         pools = []
         for sh, st in zip(shards, states):
-            pool: Dict[str, List[torch.Tensor]] = {"noisy": [], "t": [],
-                                                   "eps_dest": []}
+            ctxs = {"eps_dest": st["dest_hidden"]}
             if st["source_hidden"] is not None:
-                pool["eps_src"] = []
-            for d in draws:
-                x, t = self._noisy(*(a[sh.rows].to(sh.device) for a in d))
-                pool["noisy"].append(x)
-                pool["t"].append(t)
-                pool["eps_dest"].append(self._eps(sh.unet, x, t,
-                                                  st["dest_hidden"]))
-                if st["source_hidden"] is not None:
-                    pool["eps_src"].append(self._eps(sh.unet, x, t,
-                                                     st["source_hidden"]))
+                ctxs["eps_src"] = st["source_hidden"]
+            rows = st["C"] * batch.source_ids.shape[1]
+            pool: Dict[str, List[torch.Tensor]] = {
+                k: [] for k in ("noisy", "t", *ctxs)}
+            k0 = 0
+            for n in pool_calls(K, rows, h, w):
+                x, t = self._noisy(*(
+                    torch.cat([d[j][sh.rows] for d in draws[k0:k0 + n]]
+                              ).to(sh.device) for j in range(3)))
+                k0 += n
+                pool["noisy"] += x.split(rows)
+                pool["t"] += t.split(rows)
+                for key, ctx in ctxs.items():
+                    count("stage1.pool_calls")
+                    pool[key] += self._eps(sh.unet, x, t,
+                                           ctx.repeat(n, 1, 1)).split(rows)
             pools.append({k: torch.stack(v) for k, v in pool.items()})
         return pools
 

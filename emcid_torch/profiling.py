@@ -96,7 +96,8 @@ def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the counter ``name`` of the recording in scope (none:
     nothing).  Stage 1 (``engine/compute_z``) counts its steps that
     replayed CUDA graphs, ``stage1.graph_steps``, and its eager ones,
-    ``stage1.eager_steps``; each capture is a ``stage1.capture`` span."""
+    ``stage1.eager_steps``, and the eps_dest pool's UNet calls,
+    ``stage1.pool_calls``; each capture is a ``stage1.capture`` span."""
     if _RECORDER is not None:
         _RECORDER.counts[name] = _RECORDER.counts.get(name, 0) + n
 
