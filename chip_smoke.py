@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels-only   # phases 1-2, no device line
     python3 chip_smoke.py --stage1-graphs  # phases 1, 3b and 8b
     python3 chip_smoke.py --stage1-pool    # phases 1 and 3c
+    python3 chip_smoke.py --sd3            # phases 1 and 9
 
 (``--dcn-worker SPEC`` is one rank of phase 7f, which the script starts
 itself under ``python -m torch.distributed.run``.)
@@ -197,7 +198,14 @@ Phases, each printing one JSON line:
    shape (2 concepts x 3 prompts, 128x128 latents, 30 steps): eager, then
    graphs twice; z both ways, the K1-K4 launches per route, the Stage-1
    counters, the capture seconds, a concept-step's device and host
-   milliseconds, the peak and reserved memory.
+   milliseconds, the peak and reserved memory;
+9. SD3.5 Medium's MMDiT-X at published widths (``sd3_model_check``, random
+   weights from seed 0) on one 1024-px image: the velocity and its
+   gradients into the context and the pooled embeds in bf16 and in f32
+   against the benchmark's plain f32 reference, K1-K4's launches by route
+   and the attention shapes (the joint 4429 tokens, the dual blocks'
+   4096); the bf16 run on K1-K3's ``mma`` routes only, its forward and
+   backward's milliseconds and peak memory.
 
 Then the kernel table line (launches from the CLI path, from the
 evaluation path's mend run, from the SDXL path, from the UNet edit
@@ -456,6 +464,9 @@ def phase_flash_fwd(torch, shapes, failures):
         s = D ** -0.5
         o, lse = fv2.flash_fwd(q, k, v, s)
         route = fv2.fwd_route(q, k, v, o)
+        if dtype == torch.bfloat16 and route != ("d512" if D == 512
+                                                 else "mma"):
+            failures.append(f"K1 at {(B, N, H, D)} {dtype}: route {route}")
         o_ref, lse_ref = fv2.flash_fwd_plain(q, k, v, s)
         err, rel, ok = check("K1", o, o_ref, dtype, (B, N, H, D), failures)
         lse_err, lse_rel, lse_ok = check("K1 lse", lse, lse_ref,
@@ -840,7 +851,11 @@ def kernel_phases(torch, failures):
         # dim 64) in CFG training-image generation (6 images), the VAE
         # mid-block over 128x128 tokens (decode and re-encode of 6 images)
         ((12, 4096, 10, 64), bf), ((12, 1024, 20, 64), bf),
-        ((6, 16384, 1, 512), bf)], failures)
+        ((6, 16384, 1, 512), bf),
+        # SD3.5 Medium at 1024 px, CFG training-image generation (6
+        # images): the joint attention over 4096 image + 333 text tokens
+        # (N = 4429, ragged) and the dual image-only attention, 24 x 64
+        ((6, 4429, 24, 64), bf), ((6, 4096, 24, 64), bf)], failures)
     # K2/K3: ragged f32 (fma route) and bf16 (mma; N = M = 300 is not a
     # multiple of 64) shapes; the level-0 Stage-1 shape; the 512-px Stage-1
     # levels 0 and 1 (EMCID_TPU_TRAIN_RES=0)
@@ -853,7 +868,11 @@ def kernel_phases(torch, failures):
                                     # SDXL Stage 1: one concept's 3 prompts
                                     # at levels 1 and 2 (head dim 64)
                                     ((3, 4096, 10, 64), bf),
-                                    ((3, 1024, 20, 64), bf)], failures)
+                                    ((3, 1024, 20, 64), bf),
+                                    # SD3.5 Medium Stage 1: one concept's 3
+                                    # prompts, joint and dual attention
+                                    ((3, 4429, 24, 64), bf),
+                                    ((3, 4096, 24, 64), bf)], failures)
     # K4: ragged f32 (fma) and bf16 (mma; M = 200 takes three key chunks
     # and the online rescale); the level-0 cross-attention; 512 px levels 0
     # and 1
@@ -4972,6 +4991,93 @@ def kernel_table(rows, launches, routes, eval_run, sdxl_run, xkv_run,
     return table
 
 
+def sd3_model_check(torch, failures) -> dict:
+    """Phase 9: SD3.5 Medium's MMDiT-X at published widths (random weights
+    from seed 0) on one 1024-px image (128 x 128 latents, 4096 image and
+    333 text tokens): the velocity and its gradient into the context and
+    the pooled embeds, in bf16 (attention through the kernels, 5e-2) and
+    in f32 (1e-3), against the benchmark's plain f32 reference
+    (``portbench.reference.sd3_edit.mmdit``), with K1-K4's launches by
+    route and the attention shapes they ran at.  The bf16 run must take
+    the ``mma`` routes of K1-K3 and no ``fma`` route."""
+    from emcid_torch.models.configs import MMDiTConfig
+    from emcid_torch.models.loader import _random_init_
+    from emcid_torch.models.mmdit import MMDiT, pos_table
+    from emcid_torch.ops import _build
+    from emcid_torch.runtime import precise_matmuls
+    from portbench.reference import sd3_edit
+    from portbench.reference.ops import Prec, exact_f32
+    from portbench.trace import attention_shapes
+
+    cfg = MMDiTConfig()
+    t0 = time.time()
+    with torch.device("meta"):
+        f32 = MMDiT(cfg)
+    f32 = f32.to_empty(device="cuda")
+    with torch.no_grad():
+        _random_init_(f32, torch.Generator(device="cuda").manual_seed(0))
+        f32.pos_embed.pos_embed.copy_(pos_table(cfg))
+    f32.eval().requires_grad_(False)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    g = torch.Generator(device="cuda").manual_seed(11)
+    mk = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
+    x, ctx0, pool0 = mk(1, 16, 128, 128), mk(1, 333, 4096), mk(1, 2048)
+    w = mk(1, 16, 128, 128)
+    t = torch.tensor([500.0], device="cuda")
+
+    def velocity_and_grads(model, dtype):
+        ctx = ctx0.to(dtype).detach().requires_grad_()
+        pool = pool0.to(dtype).detach().requires_grad_()
+        v = model(x.to(dtype), t, ctx, pool)
+        gc, gp = torch.autograd.grad((v.float() * w).sum(), (ctx, pool))
+        return v.detach().float(), gc.float(), gp.float()
+
+    with exact_f32():
+        want = velocity_and_grads(
+            lambda *a: sd3_edit.mmdit(Prec(dict(f32.state_dict())),
+                                      dataclasses.asdict(cfg), *a),
+            torch.float32)
+    bf16 = copy.deepcopy(f32).to(torch.bfloat16)
+    rows = []
+    for label, model, dtype, tol in (
+            ("f32", f32, torch.float32, MODEL_TOL),
+            ("bf16", bf16, torch.bfloat16, BF16_MODEL_TOL)):
+        shapes = []
+        with precise_matmuls() if dtype == torch.float32 else \
+                contextlib.nullcontext(), attention_shapes(shapes):
+            _build.reset_launches()
+            got = velocity_and_grads(model, dtype)
+            routes = copy.deepcopy(_build.ROUTES)
+        errs = {f"{k}_rel_err": rel_err(a, b)[1] for k, a, b in zip(
+            ("velocity", "ctx_grad", "pooled_grad"), got, want)}
+        row = dict(phase="sd3_model_check",
+                   what=f"sd3.5-medium MMDiT-X {label}, 1 image, 128x128 "
+                   "latents, 333 text tokens, against the f32 reference",
+                   build_s=build_s, **errs, tolerance=tol,
+                   routes={k: routes[k] for k in ATTENTION},
+                   attention_shapes=sorted({
+                       f"{k} B{b} N{n} M{m} H{h} D{d}"
+                       for k, b, n, m, h, d, _ in shapes}))
+        ok = (all(e <= tol for e in errs.values())
+              and all(bool(torch.isfinite(a).all()) for a in got))
+        if dtype == torch.bfloat16:
+            row["fwd_bwd_ms"] = cuda_ms(
+                lambda: velocity_and_grads(model, dtype), reps=2, warmup=1)
+            row["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            ok = ok and routes_ok(routes, {k: ("mma",) for k in (
+                "K1 flash_v2_fwd", "K2 flash_v2_dq", "K3 flash_v2_dkv")})
+        row["ok"] = ok
+        emit(row)
+        rows.append(row)
+        if not ok:
+            failures.append(f"SD3 model check {label}: {row}")
+        del got
+    del f32, bf16, want
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     kernels_only = "--kernels-only" in argv
@@ -5016,6 +5122,11 @@ def main(argv=None) -> int:
                                       seed=0, device="cuda")
         with environ(**dict.fromkeys(KNOBS)):
             stage1_pool_path(torch, comps, failures)
+        for f in failures:
+            print(f"FAILED: {f}", file=sys.stderr)
+        return 1 if failures else 0
+    if "--sd3" in argv:
+        sd3_model_check(torch, failures)
         for f in failures:
             print(f"FAILED: {f}", file=sys.stderr)
         return 1 if failures else 0
@@ -5107,6 +5218,8 @@ def main(argv=None) -> int:
     del ref
     torch.cuda.empty_cache()
     lap("sdxl_path")
+    sd3_model_check(torch, failures)
+    lap("sd3_model_check")
     emit(dict(phase="walls", seconds=walls, total_s=time.time() - t0))
     if failures:
         for f in failures:

@@ -177,6 +177,9 @@ def vae_config_from_diffusers(c: dict) -> VAEConfig:
         norm_num_groups=c.get("norm_num_groups", 32),
         sample_size=c.get("sample_size", 512),
         scaling_factor=c.get("scaling_factor", 0.18215),
+        shift_factor=c.get("shift_factor") or 0.0,
+        use_quant_conv=c.get("use_quant_conv", True),
+        use_post_quant_conv=c.get("use_post_quant_conv", True),
     )
 
 
@@ -216,6 +219,11 @@ class VAEConfig:
     norm_num_groups: int = 32
     sample_size: int = 512
     scaling_factor: float = 0.18215  # SDXL: 0.13025
+    # SD3: latents are (mean - shift_factor) * scaling_factor, and the
+    # 1x1 quant convs are absent
+    shift_factor: float = 0.0
+    use_quant_conv: bool = True
+    use_post_quant_conv: bool = True
 
 
 def sd_vae() -> VAEConfig:
@@ -233,3 +241,73 @@ def tiny_vae() -> VAEConfig:
         norm_num_groups=4,
         sample_size=32,
     )
+
+
+def sd3_vae() -> VAEConfig:
+    """SD3's VAE: 16 latent channels, no quant convs, latents
+    (mean - 0.0609) * 1.5305."""
+    return VAEConfig(latent_channels=16, sample_size=1024,
+                     scaling_factor=1.5305, shift_factor=0.0609,
+                     use_quant_conv=False, use_post_quant_conv=False)
+
+
+@dataclass(frozen=True)
+class MMDiTConfig:
+    """diffusers' ``SD3Transformer2DModel`` (MMDiT, and MMDiT-X with
+    ``dual_attention_layers``); defaults are SD3.5 Medium's
+    ``transformer/config.json``."""
+
+    sample_size: int = 128
+    patch_size: int = 2
+    in_channels: int = 16
+    out_channels: int = 16
+    num_layers: int = 24
+    attention_head_dim: int = 64
+    num_attention_heads: int = 24
+    joint_attention_dim: int = 4096
+    caption_projection_dim: int = 1536
+    pooled_projection_dim: int = 2048
+    pos_embed_max_size: int = 384
+    dual_attention_layers: Tuple[int, ...] = tuple(range(13))
+    qk_norm: Optional[str] = "rms_norm"
+
+    @property
+    def inner_dim(self) -> int:
+        return self.num_attention_heads * self.attention_head_dim
+
+
+def mmdit_config_from_diffusers(c: dict) -> MMDiTConfig:
+    """Map a diffusers ``transformer/config.json`` dict onto MMDiTConfig."""
+    keys = {f for f in MMDiTConfig.__dataclass_fields__}
+    kw = {k: v for k, v in c.items() if k in keys}
+    kw["dual_attention_layers"] = tuple(c.get("dual_attention_layers") or ())
+    kw.setdefault("qk_norm", None)
+    return MMDiTConfig(**kw)
+
+
+@dataclass(frozen=True)
+class T5Config:
+    """transformers' ``T5EncoderModel`` (v1.1: gated ``gelu_new``
+    feed-forward, untied head); defaults are T5-v1.1-XXL, SD3's
+    ``text_encoder_3``."""
+
+    vocab_size: int = 32128
+    d_model: int = 4096
+    d_kv: int = 64
+    d_ff: int = 10240
+    num_layers: int = 24
+    num_heads: int = 64
+    relative_attention_num_buckets: int = 32
+    relative_attention_max_distance: int = 128
+    layer_norm_epsilon: float = 1e-6
+
+
+def t5_config_from_transformers(c: dict) -> T5Config:
+    """Map a transformers T5 ``config.json`` dict onto T5Config; only
+    v1.1's ``feed_forward_proj`` "gated-gelu" is ported."""
+    ff = c.get("feed_forward_proj", "gated-gelu")
+    if ff != "gated-gelu":
+        raise NotImplementedError(f"feed_forward_proj={ff!r}: only T5 "
+                                  "v1.1's gated gelu_new is ported")
+    keys = T5Config.__dataclass_fields__
+    return T5Config(**{k: v for k, v in c.items() if k in keys})

@@ -258,3 +258,80 @@ def run_sampler(sampler: str, schedule: Schedule,
         fn = unet_eps if i < n_head else unet_eps_tail
         state, latents = step(schedule, state, latents, fn(latents, te), t, tp)
     return latents
+
+
+# -- flow matching (SD3) -------------------------------------------------------
+
+
+def flow_shift(sigmas, shift: float):
+    """SD3's timestep shift: s' = shift * s / (1 + (shift - 1) * s)."""
+    return shift * sigmas / (1 + (shift - 1) * sigmas)
+
+
+def flow_train_sigmas(shift: float = 3.0, num_train_timesteps: int = 1000
+                      ) -> np.ndarray:
+    """diffusers ``FlowMatchEulerDiscreteScheduler``'s training table
+    (float32, descending): sigma_i = shift((N - i) / N), i = 0 .. N - 1;
+    the model's timestep at entry i is 1000 * sigma_i."""
+    n = num_train_timesteps
+    t = torch.from_numpy(np.linspace(1, n, n, dtype=np.float32)[::-1].copy())
+    return flow_shift(t / n, shift).numpy()
+
+
+def flow_sigmas(num_inference_steps: int, shift: float = 3.0,
+                num_train_timesteps: int = 1000) -> np.ndarray:
+    """Inference sigmas, (steps + 1,) float32, as diffusers' non-dynamic
+    ``set_timesteps``: with the training table's ends s_max = sigma_0 and
+    s_min = sigma_{N-1},
+
+        sigmas = shift(linspace(s_max, s_min, steps))   (float64)
+
+    cast to float32, then 0 appended.  The model's timestep at step i is
+    float32(1000 * sigmas[i])."""
+    table = flow_train_sigmas(shift, num_train_timesteps)
+    n = num_train_timesteps
+    ts = np.linspace(float(table[0]) * n, float(table[-1]) * n,
+                     num_inference_steps)
+    s = flow_shift(ts / n, shift).astype(np.float32)
+    return np.concatenate([s, np.zeros(1, np.float32)])
+
+
+def flow_timestep(sigma) -> float:
+    """The model's timestep at ``sigma``: 1000 * sigma in float32."""
+    return float(np.float32(sigma) * np.float32(1000.0))
+
+
+def flow_add_noise(x0: torch.Tensor, noise: torch.Tensor,
+                   sigmas: torch.Tensor) -> torch.Tensor:
+    """x_t = (1 - sigma) * x0 + sigma * noise, sigma per leading row."""
+    s = sigmas.reshape((-1,) + (1,) * (x0.dim() - 1))
+    return (1.0 - s) * x0 + s * noise
+
+
+def flow_velocity(x0: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """The flow-matching target v = noise - x0."""
+    return noise - x0
+
+
+def flow_euler_step(latents: torch.Tensor, v: torch.Tensor, sigma,
+                    sigma_next) -> torch.Tensor:
+    """x += (sigma_next - sigma) * v, the difference taken in float32."""
+    dt = float(np.float32(sigma_next) - np.float32(sigma))
+    return latents.float() + dt * v.float()
+
+
+def run_flow_sampler(model_v: Callable, latents: torch.Tensor,
+                     sigmas: np.ndarray, model_v_tail: Optional[Callable] = None,
+                     n_head: Optional[int] = None) -> torch.Tensor:
+    """Flow-matching Euler over ``sigmas`` (``flow_sigmas``).
+    ``model_v(lat, t)`` is the (CFG-merged) velocity at the model timestep
+    ``t``; steps from ``n_head`` on use ``model_v_tail`` (the CFG-interval
+    split).  Each evaluation and its step is one ``sampler.step`` span."""
+    steps = len(sigmas) - 1
+    if model_v_tail is None or n_head is None or n_head >= steps:
+        n_head = steps
+    for i in each("sampler.step", range(steps)):
+        fn = model_v if i < max(int(n_head), 1) else model_v_tail
+        v = fn(latents, flow_timestep(sigmas[i]))
+        latents = flow_euler_step(latents, v, sigmas[i], sigmas[i + 1])
+    return latents

@@ -2,7 +2,8 @@
 
 Counterpart of ``emcid_tpu/models/vae.py``; NCHW inside.  ``encode`` gives
 the posterior (mean, logvar) before the scaling factor, ``decode`` maps
-latents back to RGB in [-1, 1].  The mid-block attention is one head of
+latents back to RGB in [-1, 1]; SD3's VAE has no 1x1 quant convs
+(``use_quant_conv``/``use_post_quant_conv`` False).  The mid-block attention is one head of
 width C (512 in SD) over H*W tokens, through ``ops.attention`` — the
 flash-v2 forward kernel on the card at the 48x48 grid and above.
 """
@@ -155,16 +156,23 @@ class AutoencoderKL(nn.Module):
         self.config = config
         self.encoder = Encoder(config)
         self.decoder = Decoder(config)
-        self.quant_conv = nn.Conv2d(2 * config.latent_channels,
-                                    2 * config.latent_channels, 1)
-        self.post_quant_conv = nn.Conv2d(config.latent_channels,
-                                         config.latent_channels, 1)
+        if config.use_quant_conv:
+            self.quant_conv = nn.Conv2d(2 * config.latent_channels,
+                                        2 * config.latent_channels, 1)
+        if config.use_post_quant_conv:
+            self.post_quant_conv = nn.Conv2d(config.latent_channels,
+                                             config.latent_channels, 1)
 
     def encode(self, x: torch.Tensor) -> LatentDist:
         """RGB NCHW in [-1, 1] -> posterior (pre-scaling-factor), NCHW."""
-        mean, logvar = self.quant_conv(self.encoder(x)).chunk(2, dim=1)
+        h = self.encoder(x)
+        if self.config.use_quant_conv:
+            h = self.quant_conv(h)
+        mean, logvar = h.chunk(2, dim=1)
         return LatentDist(mean, logvar)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """Latents NCHW (pre-scaling-factor) -> RGB NCHW."""
-        return self.decoder(self.post_quant_conv(z))
+        if self.config.use_post_quant_conv:
+            z = self.post_quant_conv(z)
+        return self.decoder(z)
